@@ -2,7 +2,7 @@
 
 PyCMF itself is not installable in this environment (no network; the
 reference mount is empty — SURVEY.md provenance notice), so this module is
-the CPU stand-in baseline (BASELINE.md) and the independent oracle for the
+the CPU stand-in baseline (bench.py) and the independent oracle for the
 golden parity tests: it implements the MU rules and the row-wise Newton
 update from SURVEY.md §0 directly in NumPy/SciPy, with the same pinned
 conventions as pycmf_tpu (update order U→Z→V, sklearn-style regularized
@@ -89,6 +89,18 @@ def run_mu(X, Y, U, V, Z, alpha=0.0, l1_ratio=0.0, eps=1e-10,
             break
         prev = cur
     return U, V, Z, n_iter, history
+
+
+def fold_in_mu(X, V, U, alpha=0.0, l1_ratio=0.0, eps=1e-10, n_iter=30):
+    """Fold-in (``CMF.transform`` with solver='mu'): the MU rule on U alone,
+    with V (and Z) held fixed, for a fixed iteration count."""
+    l1 = alpha * l1_ratio
+    l2 = alpha * (1 - l1_ratio)
+    XV = _mm(X, V)
+    VtV = V.T @ V
+    for _ in range(n_iter):
+        U = U * XV / (U @ VtV + l1 + l2 * U + eps)
+    return U
 
 
 def newton_update_factor(M, terms, alpha=0.0, l1_ratio=0.0,

@@ -19,7 +19,7 @@ def draw_case(rng: np.random.RandomState) -> dict:
     """Return one random problem + estimator config.
 
     Keys: X, Y, U0, V0, Z0 (problem; Y/Z0 may be None), kw (CMF kwargs
-    minus script-specific ones like max_iter/loop/use_pallas), lay
+    minus script-specific ones like max_iter/loop), lay
     (layout name, 'none' = single-chip), skw (the n_shards/shard_layout
     kwargs for lay), sr / sparse (for the scripts' skip logic), desc
     (one-line description).

@@ -1,9 +1,10 @@
-"""Randomized config fuzzer: pallas-vs-XLA and sharded-vs-single parity.
+"""Randomized config fuzzer: reference and sharded-vs-single parity.
 
 Draws random tiny problems across the full config space (the shared
-generator in fuzz_common.py) and asserts use_pallas=True matches
-use_pallas=False at f64 (rtol 1e-7) and, for full-batch fits, the
-sharded run matches the single-device run (rtol 1e-6). Sampled fits
+generator in fuzz_common.py) and asserts, for full-batch fits, that the
+single-device fit matches the float64 NumPy reference
+(baselines/numpy_cmf.py, rtol 1e-7) and that the sharded run matches the
+single-device run (rtol 1e-6). Sampled fits
 (sg_sample_ratio < 1) skip the sharded comparison: per-shard sample
 keys are folded with the shard index BY DESIGN, so sharded stochastic
 trajectories differ from single-device (host-vs-device loop parity is
@@ -11,10 +12,6 @@ what's guaranteed — see tests/test_sharded.py::TestShardedDeviceLoop).
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python benchmarks/fuzz_configs.py <seed> <n_cases>
-
-Round-3 results: 160 cases pre-refactor (seeds 0/7 + seed 3 with the
-sigmoid-chunked combos), then 40 more (seed 0) through the shared
-generator — 0 failures total.
 """
 import jax
 
@@ -28,8 +25,27 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 
+from baselines import numpy_cmf
 from fuzz_common import draw_case
 from pycmf_tpu import CMF
+
+
+def reference(c, max_iter):
+    """(U, V) from the float64 NumPy reference, same inits and count."""
+    kw = c["kw"]
+    args = (c["X"], c["Y"], c["U0"].copy(), c["V0"].copy(),
+            None if c["Z0"] is None else c["Z0"].copy())
+    common = dict(max_iter=max_iter, tol=0.0, alpha=kw["alpha"],
+                  l1_ratio=kw["l1_ratio"])
+    if kw["solver"] == "mu":
+        out = numpy_cmf.run_mu(*args, **common)
+    else:
+        nn = kw["U_non_negative"]
+        out = numpy_cmf.run_newton(*args, x_link=kw["x_link"],
+                                   y_link=kw["y_link"],
+                                   non_negative=(nn, nn, nn), **common)
+    return out[0], out[1]
+
 
 seed = int(sys.argv[1]) if len(sys.argv) > 1 else 0
 N = int(sys.argv[2]) if len(sys.argv) > 2 else 40
@@ -46,20 +62,19 @@ for t in range(N):
     kw = dict(max_iter=4, **c["kw"])
     desc = f"[{t}] {c['desc']}"
     try:
-        mp = CMF(use_pallas=True, **kw)
+        mp = CMF(**kw)
         mp.fit(c["X"], c["Y"], U=c["U0"], V=c["V0"], Z=c["Z0"])
-        mx = CMF(use_pallas=False, **kw)
-        mx.fit(c["X"], c["Y"], U=c["U0"], V=c["V0"], Z=c["Z0"])
-        ok = (np.allclose(mp.U_, mx.U_, rtol=1e-7, atol=1e-9)
-              and np.allclose(mp.V_, mx.V_, rtol=1e-7, atol=1e-9))
-        if not ok:
-            print("PALLAS-MISMATCH", desc,
-                  np.max(np.abs(np.asarray(mp.U_) - np.asarray(mx.U_))),
-                  flush=True)
-            fails += 1
-            continue
+        if c["sr"] >= 1.0:
+            Ur, Vr = reference(c, kw["max_iter"])
+            ok = (np.allclose(mp.U_, Ur, rtol=1e-7, atol=1e-9)
+                  and np.allclose(mp.V_, Vr, rtol=1e-7, atol=1e-9))
+            if not ok:
+                print("REFERENCE-MISMATCH", desc,
+                      np.max(np.abs(np.asarray(mp.U_) - Ur)), flush=True)
+                fails += 1
+                continue
         if c["lay"] != "none" and c["sr"] >= 1.0:
-            ms = CMF(use_pallas=True, **c["skw"], **kw)
+            ms = CMF(**c["skw"], **kw)
             ms.fit(c["X"], c["Y"], U=c["U0"], V=c["V0"], Z=c["Z0"])
             ok = (np.allclose(mp.U_, ms.U_, rtol=1e-6, atol=1e-8)
                   and np.allclose(mp.V_, ms.V_, rtol=1e-6, atol=1e-8))

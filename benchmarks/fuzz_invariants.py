@@ -2,7 +2,7 @@
 (fuzz_configs.py) does not cover.
 
 Per random case (the shared generator in fuzz_common.py) it checks, at
-f64 with use_pallas=True (interpret-mode kernels on the CPU backend):
+f64 on the CPU backend:
 
 1. loop='device' matches loop='host' (same config, same init) — the
    device-resident while_loop and the host tol loop share one RNG
@@ -14,14 +14,10 @@ f64 with use_pallas=True (interpret-mode kernels on the CPU backend):
 3. eval-cadence independence: with tol=0, eval_every=1 vs 3 must not
    change the factors (loss evaluation is observation, not state).
 4. transform parity: fold-in on fresh rows (explicit U0) matches between
-   use_pallas on/off, and between the sharded and single-device models
-   fitted from the same init.
+   the sharded and single-device models fitted from the same init.
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python benchmarks/fuzz_invariants.py <seed> <n_cases>
-
-Round-3 results: 80 cases pre-refactor (seeds 0, 1), then 40 more
-(seed 1) through the shared generator — 0 failures total.
 """
 import jax
 
@@ -53,7 +49,7 @@ for t in range(N):
         jax.clear_caches()  # bound LLVM JIT memory (see fuzz_configs.py)
     c = draw_case(rng)
     X, Y, U0, V0, Z0 = c["X"], c["Y"], c["U0"], c["V0"], c["Z0"]
-    kw = dict(random_state=7, use_pallas=True, **c["kw"], **c["skw"])
+    kw = dict(random_state=7, **c["kw"], **c["skw"])
     desc = f"[{t}] {c['desc']}"
     try:
         base = CMF(max_iter=4, **kw)
@@ -96,7 +92,7 @@ for t in range(N):
             fails += 1
             continue
 
-        # 4. transform parity (pallas on/off; sharded vs single)
+        # 4. transform parity (sharded vs single)
         n2 = int(rng.choice([2, 7, 13]))
         m = V0.shape[0]
         X2 = np.abs(rng.randn(n2, m))
@@ -104,15 +100,6 @@ for t in range(N):
             X2 = (X2 > np.median(X2)).astype(float)
         U2 = np.abs(rng.randn(n2, U0.shape[1]))
         tp = base.transform(X2, U=U2)
-        base_x = CMF(max_iter=4, **{**kw, "use_pallas": False})
-        base_x.fit(X, Y, U=U0, V=V0, Z=Z0)
-        tx = base_x.transform(X2, U=U2)
-        if not close(tp, tx, 1e-7, 1e-9):
-            print("TRANSFORM-PALLAS-MISMATCH", desc,
-                  np.max(np.abs(np.asarray(tp) - np.asarray(tx))),
-                  flush=True)
-            fails += 1
-            continue
         if c["lay"] != "none" and c["sr"] >= 1.0:
             single = CMF(max_iter=4,
                          **{k: v for k, v in kw.items()

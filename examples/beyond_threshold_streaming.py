@@ -1,19 +1,18 @@
-"""Beyond-threshold sparse X on ONE chip: the streaming chunked path.
+"""Beyond-threshold sparse X on ONE device: the streaming chunked path.
 
 Scattered-sparse matrices whose dense copy exceeds the densify threshold
-have three single-chip options in this build (docs/PERFORMANCE.md sparse
-decision tree), demonstrated here on a small problem by forcing each mode:
+have three single-device options in this build, demonstrated here on a
+small problem by forcing each mode (none of them is timed on the GPU yet):
 
 1. data_dtype='bfloat16' + sparse_mode='auto' — the threshold counts
-   STORAGE bytes, so bf16 doubles the densify reach; the fused MU kernel
-   then streams the dense bf16 matrix at memory bandwidth (measured
-   42.5x the segment-sum path at 7.2 GB-f32-equivalent scale).
+   STORAGE bytes, so bf16 doubles the densify reach; the MU step then
+   streams the dense bf16 matrix.
 2. sparse_mode='chunked' — row-sorted COO chunks scatter into a reused
    ~256 MB dense buffer every iteration; X's dense form NEVER exists in
-   HBM, so this is the only single-chip option for beyond-HBM X
-   (measured 2.4x segment-sum — bounded by the TPU scatter floor).
-3. n_shards=K — row-shard so each chip's local block densifies (the
-   production answer at pod scale; see pod_scale_sharded.py).
+   device memory, so this is the only single-device option for X whose
+   dense copy does not fit the device.
+3. n_shards=K — row-shard so each device's local block densifies (see
+   pod_scale_sharded.py).
 
 Run: python examples/beyond_threshold_streaming.py
 """

@@ -2,11 +2,10 @@
 
 Users of the reference library (smn-ailab/PyCMF) import ``from pycmf
 import CMF``; this shim lets that line work unchanged against the
-TPU-native rebuild. It re-exports the public surface of
-:mod:`pycmf_tpu` — the estimator carries the full reference kwarg set
-(SURVEY.md §1) plus TPU-side extras (``n_shards``, ``use_pallas``,
-``data_dtype``, ...), all defaulted so reference-style call sites run
-as-is.
+JAX rebuild. It re-exports the public surface of :mod:`pycmf_tpu` — the
+estimator carries the full reference kwarg set (SURVEY.md §1) plus this
+build's extras (``n_shards``, ``data_dtype``, ...), all defaulted so
+reference-style call sites run as-is.
 
 This package contains no implementation: everything lives in
 ``pycmf_tpu``.

@@ -1,14 +1,14 @@
-"""pycmf_tpu — TPU-native Collective Matrix Factorization.
+"""pycmf_tpu — Collective Matrix Factorization in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-smn-ailab/PyCMF (see SURVEY.md): jointly factor X ≈ f_x(U Vᵀ) and
-Y ≈ f_y(V Zᵀ) with a shared V, behind a scikit-learn-style estimator.
+A from-scratch JAX/XLA rebuild of the capabilities of smn-ailab/PyCMF
+(see SURVEY.md): jointly factor X ≈ f_x(U Vᵀ) and Y ≈ f_y(V Zᵀ) with a
+shared V, behind a scikit-learn-style estimator.
 
-Layers (SURVEY.md §1 "TPU-native layer map"):
+Layers (SURVEY.md §1 layer map):
   models.CMF        — sklearn-compatible estimator (NumPy in/out)
   solvers           — pure jitted MU + batched Newton steps
-  ops / ops.pallas  — links, losses, sparse SpMM, fused TPU kernels
-  parallel          — 1-D mesh row-sharding with shared-V psum
+  ops               — links, losses, sparse SpMM and chunked streaming
+  parallel          — rows / cols / grid sharding over a device mesh
   utils             — init, validation, analysis, checkpoint, profiling
 """
 from .models.cmf import CMF

@@ -13,7 +13,7 @@ stochastic column subsampling for Newton, and seeded or externally-supplied
 initialization (the 1e-5 parity mechanism).
 
 The estimator is a NumPy-in/NumPy-out shell: validation and initialization
-run on the host, the solver loop is a pure jitted function on the TPU
+run on the host, the solver loop is a pure jitted function on the device
 (SURVEY.md §7 design stance). Multi-chip runs are a property of the arrays,
 not the algorithm: pass ``n_shards`` to row-shard the data over a 1-D device
 mesh with psum of the shared-V terms (BASELINE.json config #5).
@@ -24,20 +24,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import scipy.sparse as sp
-from sklearn.base import BaseEstimator, TransformerMixin
 
 from ..solvers.common import SolverConfig, make_hyper
 from ..solvers.mu import run_mu
 from ..solvers.newton import run_newton
 from ..utils.init import initialize_factors
 from ..utils.validation import as_coupled, check_matrix, validate_cmf_params
+from .base import EstimatorBase
 
 _DTYPES = {
     "float32": jnp.float32,
     "float64": jnp.float64,
     "bfloat16": jnp.bfloat16,
     # fp8 is data_dtype-only (dense X/Y storage at 1 byte/elt — half bf16's
-    # HBM traffic on the data passes); factors/accumulation never go below
+    # memory traffic on the data passes); factors/accumulation never go below
     # bf16/f32, and _resolve_dtype rejects it for the factor dtype.
     "float8_e4m3fn": jnp.float8_e4m3fn,
     "fp8": jnp.float8_e4m3fn,
@@ -59,8 +59,8 @@ def _jax_seed(random_state) -> int:
     return 0
 
 
-class CMF(BaseEstimator, TransformerMixin):
-    """Collective Matrix Factorization on TPU.
+class CMF(EstimatorBase):
+    """Collective Matrix Factorization.
 
     Parameters (reference-compatible surface, SURVEY.md §1)
     ----------
@@ -75,29 +75,27 @@ class CMF(BaseEstimator, TransformerMixin):
     x_init, y_init : 'random' | 'svd' | 'nndsvd' | 'nndsvda' | 'nndsvdar'.
     random_state, verbose : usual sklearn semantics.
 
-    TPU-build extensions
-    --------------------
+    Extensions of this build
+    ------------------------
     dtype : 'float32' (default) | 'float64' (needs jax_enable_x64)
         — compute/factor dtype (low-precision storage belongs in
         data_dtype; factor updates need f32).
     data_dtype : storage dtype for X/Y on device (None = dtype).
-        'bfloat16' halves the HBM traffic of the bandwidth-bound data
-        passes while factors and accumulation stay float32
-        (docs/PERFORMANCE.md). 'fp8' (float8_e4m3fn) halves it again for
-        dense X (the fused kernels upcast tiles to bf16 in-register; Y
-        stays bf16; factors/accumulation stay float32) — quantization
-        noise averages out in the length-m MXU contractions, so the loss
-        impact is small, but verify against your tolerance.
+        'bfloat16' halves the memory traffic of the bandwidth-bound data
+        passes while factors and accumulation stay float32. 'fp8'
+        (float8_e4m3fn) halves it again for dense X (upcast to bf16 for
+        each dot; Y stays bf16; factors/accumulation stay float32) —
+        quantization noise averages out in the length-m contractions, so
+        the loss impact is small, but verify against your tolerance.
     eval_every : iterations between loss/tol checks.
     loop : 'auto' (default) | 'host' | 'device'. 'device' runs the whole
         tol-checked fit as one on-device lax.while_loop (one dispatch per
-        fit; auto-selected on TPU). verbose printing needs loop='host'.
-    use_pallas : None (auto: on for TPU) | bool — route hot ops through the
-        Pallas kernels where reliable (see docs/PERFORMANCE.md).
+        fit); 'host' syncs with the host every eval_every iterations.
+        'auto' picks per backend (see _resolve_loop). verbose printing
+        needs loop='host'.
     sparse_mode : 'auto' (densify sparse input when the dense copy AT THE
-        STORAGE DTYPE fits ~2 GB — the fast TPU path; above that, stream
-        row chunks through a reused dense buffer, ops/chunked.py, when the
-        solver/links allow) | 'csr' | 'dense' | 'chunked' (force the
+        STORAGE DTYPE fits ~2 GB; above that, stream row chunks through a
+        reused dense buffer, ops/chunked.py) | 'csr' | 'dense' | 'chunked' (force the
         streaming layout; MU and full-batch Newton — either link — on
         every layout, single-chip or sharded).
     hessian_form : 'gauss' (default) | 'full' Newton Hessian weights.
@@ -124,7 +122,7 @@ class CMF(BaseEstimator, TransformerMixin):
                  Z_non_negative=True, x_link="linear", y_link="linear",
                  x_init="random", y_init="random", hessian_pertubation=0.2,
                  sg_sample_ratio=1.0, eps=1e-10, dtype="float32",
-                 eval_every=10, use_pallas=None, hessian_form="gauss",
+                 eval_every=10, hessian_form="gauss",
                  line_search_trials=8, n_shards=None, shard_layout="rows",
                  sparse_mode="auto", loop="auto", data_dtype=None):
         self.n_components = n_components
@@ -147,7 +145,6 @@ class CMF(BaseEstimator, TransformerMixin):
         self.eps = eps
         self.dtype = dtype
         self.eval_every = eval_every
-        self.use_pallas = use_pallas
         self.hessian_form = hessian_form
         self.line_search_trials = line_search_trials
         self.n_shards = n_shards
@@ -203,27 +200,19 @@ class CMF(BaseEstimator, TransformerMixin):
         return factor_grid(self._resolve_n_shards())
 
     def _resolve_loop(self):
-        """'auto' → fully device-resident tol loop on TPU (one dispatch per
-        fit; the host loop pays a device-link round trip per eval point),
-        host loop elsewhere. verbose > 0 needs per-eval host readbacks, so
-        auto falls back to the host loop rather than silently not printing."""
+        """'auto' → the device-resident tol loop on a GPU, the host loop
+        elsewhere. On an H100 the device loop measured 0.770 ms/iter
+        against the host loop's 0.858 for the 20NG-shaped bf16 MU fit at
+        eval_every=10 (chip_smoke.py, phase 'loop'). verbose > 0 needs
+        per-eval host readbacks, so auto falls back to the host loop
+        rather than silently not printing."""
         if self.loop == "auto":
             if self.verbose:
                 return "host"
-            return "device" if jax.default_backend() == "tpu" else "host"
+            return "device" if jax.default_backend() == "gpu" else "host"
         if self.loop not in ("host", "device"):
             raise ValueError("loop must be 'auto', 'host' or 'device'")
         return self.loop
-
-    def _resolve_use_pallas(self):
-        """None → auto: allow Pallas kernels on TPU; WHICH kernels actually
-        dispatch is the per-kernel measured policy in ops/pallas/policy.py
-        (fused MU X-pass and batched Cholesky are on; the standalone ratio
-        kernel and the per-nnz SpMM are off — docs/PERFORMANCE.md). Off-TPU
-        auto resolves to False so the jnp oracle is the default."""
-        if self.use_pallas is None:
-            return jax.default_backend() == "tpu"
-        return bool(self.use_pallas)
 
     def _resolve_dtype(self, which=None):
         dt = which if which is not None else self.dtype
@@ -240,7 +229,7 @@ class CMF(BaseEstimator, TransformerMixin):
                 "dtype='bfloat16' is not a factor/compute dtype (factor "
                 "updates need f32 precision and the solver loops carry "
                 "f32 factors); use data_dtype='bfloat16' to halve the "
-                "data-pass HBM traffic instead")
+                "data-pass memory traffic instead")
         if which is None and dt in _FP8:
             raise ValueError(
                 "fp8 is a data storage dtype, not a factor/compute dtype; "
@@ -249,7 +238,7 @@ class CMF(BaseEstimator, TransformerMixin):
 
     def _resolve_data_dtype(self):
         """Storage dtype for X/Y on device. data_dtype='bfloat16' halves
-        the HBM traffic of the data-matrix passes (the MU bottleneck) while
+        the memory traffic of the data-matrix passes (the MU bottleneck) while
         factors and all accumulation stay in ``dtype`` (float32)."""
         if self.data_dtype is None:
             return self._resolve_dtype()
@@ -265,15 +254,13 @@ class CMF(BaseEstimator, TransformerMixin):
             has_Y=has_Y, hessian_form=self.hessian_form,
             line_search_trials=self.line_search_trials,
             sg_sample_ratio=self.sg_sample_ratio,
-            use_pallas=self._resolve_use_pallas(),
         )
 
     def _matrix_sparse_mode(self, A, link, is_x: bool = True):
         """Per-matrix sparse policy. Sigmoid-linked Newton terms are
         densified when the dense copy fits: the solver materializes dense
         (p, q) sigmoid predictions regardless, so CSR storage saves no
-        memory on the hot path and the per-nonzero alternative is
-        TPU-hostile (docs/PERFORMANCE.md). A sigmoid-linked sparse Y past
+        memory on the hot path. A sigmoid-linked sparse Y past
         the densify threshold (or under an explicit sparse_mode='chunked')
         rides the SAME chunked-COO carrier as X — the Z update consumes
         the transposed-orientation streamed terms, V's Y-term the forward
@@ -390,10 +377,9 @@ class CMF(BaseEstimator, TransformerMixin):
                     "grid layouts (per-shard/per-cell streaming); use "
                     "sparse_mode='auto'")
         if self._resolve_data_dtype() in _FP8:
-            # fp8 is the dense fused-kernel fast path only: CSR segment
-            # ops, BlockEll and chunked layouts stay bf16/f32. Sharded
-            # fits are fine — each layout stores dense fp8 shards/cells
-            # and the fused kernels upcast tiles in-register per shard.
+            # fp8 is a dense-storage format only: CSR segment ops and
+            # chunked layouts stay bf16/f32. Sharded fits are fine — each
+            # layout stores dense fp8 shards/cells.
             # Only X is stored fp8 (Y is bf16 — see the fit conversion),
             # and a sigmoid-linked Newton X is force-densified by
             # _matrix_sparse_mode — so the check follows the ACTUAL
@@ -408,8 +394,7 @@ class CMF(BaseEstimator, TransformerMixin):
         # Sigmoid-linked sparse X resolves per-matrix (see
         # _matrix_sparse_mode); the sharded runners own the 'dense'
         # host-densify. A sigmoid-linked sparse Y never densifies on the
-        # host on ANY layout (round 5 closed the cols/grid asymmetry):
-        # rows replicates it (device-densify below the threshold, else
+        # host on ANY layout: rows replicates it (device-densify below the threshold, else
         # the chunked-COO carrier); cols/grid shard Y's rows with m, so
         # each shard streams its local row slice through the same carrier
         # (_prepare_cols / _prepare_grid own the policy).
@@ -494,17 +479,16 @@ class CMF(BaseEstimator, TransformerMixin):
                 sparse_mode=self._matrix_sparse_mode(X, self.x_link),
                 data_dtype=None if ddt == dt else ddt)
         else:
-            up = self._resolve_use_pallas()
             ddt = self._resolve_data_dtype()
             # fp8 storage is for the BIG matrix (X's data passes are the
             # bottleneck); the small Y stays bf16 — quantizing it saves
             # nothing and costs label precision.
             ydt = jnp.bfloat16 if ddt in _FP8 else ddt
-            Xc = as_coupled(X, ddt, use_pallas=up,
+            Xc = as_coupled(X, ddt,
                             sparse_mode=self._matrix_sparse_mode(
                                 X, self.x_link),
                             chunked_ok=self._chunked_ok())
-            Yc = (as_coupled(Y, ydt, use_pallas=up,
+            Yc = (as_coupled(Y, ydt,
                              sparse_mode=self._matrix_sparse_mode(
                                  Y, self.y_link, is_x=False))
                   if Y is not None else None)
@@ -539,7 +523,7 @@ class CMF(BaseEstimator, TransformerMixin):
         With ``n_shards > 1`` the fold-in itself is sharded: X's new rows
         are row-sharded over the mesh with V replicated (U's update is
         row-local, so the only collectives are the loss psums) — a
-        pod-scale fit can fold in pod-scale X without a single-chip OOM.
+        multi-device fit can fold in X too large for one device.
         The rows layout is used regardless of the fit-time ``shard_layout``
         because transform's natural axis is always the new-row axis.
         """
@@ -596,7 +580,6 @@ class CMF(BaseEstimator, TransformerMixin):
             return np.asarray(jax.device_get(Uf), dtype=np.float64)
 
         Xc = as_coupled(X, self._resolve_data_dtype(),
-                        use_pallas=self._resolve_use_pallas(),
                         sparse_mode=self._matrix_sparse_mode(X, self.x_link),
                         chunked_ok=self._chunked_ok())
         V0 = jnp.asarray(self.V_, dtype=dt)

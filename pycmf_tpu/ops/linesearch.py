@@ -6,8 +6,7 @@ steps 0.5^t for t = 0..trials-1 evaluated in order, a candidate is
 accepted iff its per-row objective φ STRICTLY decreases from φ(M), each
 row takes the FIRST (largest) accepted step, and rows with no accepted
 candidate keep their current value. trials <= 0 means a plain (projected)
-Newton step. The in-kernel Pallas variant (ops/pallas/newton_fused.py)
-re-implements the same rule in Mosaic and is tested against this one.
+Newton step.
 
 Callers supply φ and the projection so the objective can close over
 whatever candidate-independent context it has (factored quad terms, a
@@ -19,38 +18,17 @@ import jax
 import jax.numpy as jnp
 
 
-def backtracking_select_table(phis, project, M, d, return_phi: bool = False):
-    """Same accept rule from a PRECOMPUTED φ table (rows, trials+1):
-    slot 0 = φ(M), slot t = φ of project(M − 0.5^{t-1} d) — the fused
-    sigmoid kernels emit every candidate's objective in one data pass
-    (ops/pallas/sigmoid_newton.py), so selection only rebuilds the
-    winning candidate from the same formula (identical values).
-
-    return_phi: additionally return the per-row objective AT the selected
-    value (the accepted slot's φ, or slot 0 for rows that kept M) — the
-    step just evaluated it, so callers can assemble an eval loss with zero
-    extra data passes (solvers/newton.py φ-aux)."""
-    accepted = phis[:, 1:] < phis[:, :1]
-    first = jnp.argmax(accepted, axis=1)     # first (largest) accepted
-    any_acc = jnp.any(accepted, axis=1)
-    s = (0.5 ** first.astype(M.dtype))[:, None]
-    cand = project(M - s * d)
-    out = jnp.where(any_acc[:, None], cand, M)
-    if return_phi:
-        sel = jnp.take_along_axis(phis[:, 1:], first[:, None], axis=1)[:, 0]
-        return out, jnp.where(any_acc, sel, phis[:, 0])
-    return out
-
-
 def backtracking_select(phi, project, M, d, trials: int,
                         return_phi: bool = False):
     """Select per-row updates of M along direction d (shape of M).
 
     phi(Mc) -> (rows,) per-row objective; project(Mc) -> Mc projected
     (applied BEFORE φ, so the accept test sees the feasible point).
-    return_phi: additionally return φ at the selected value (see
-    backtracking_select_table); requires trials >= 1 (a plain Newton
-    step evaluates no objective)."""
+    return_phi: additionally return the per-row objective AT the selected
+    value (the accepted candidate's φ, or φ(M) for rows that kept M) — the
+    step just evaluated it, so callers can assemble an eval loss with zero
+    extra data passes (solvers/newton.py φ-aux); requires trials >= 1 (a
+    plain Newton step evaluates no objective)."""
     if trials <= 0:
         assert not return_phi, "return_phi needs trials >= 1"
         return project(M - d)

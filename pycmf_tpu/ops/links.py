@@ -7,7 +7,7 @@ product before the squared residual:  ½‖A − f(M Bᵀ)‖²_F.
 
 Each link provides f, f' and f'' (the latter two are needed by the Newton
 solver's gradient / full-Hessian weights, SURVEY.md §0 "Newton update").
-All functions are jnp-traceable and TPU-safe (numerically stable sigmoid via
+All functions are jnp-traceable (numerically stable sigmoid via
 jax.nn.sigmoid).
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ Objective (SURVEY.md §0, binding for parity):
     L(U,V,Z) = ½‖X − f_x(U Vᵀ)‖²_F + ½‖Y − f_y(V Zᵀ)‖²_F + R(U)+R(V)+R(Z)
     R(M)     = alpha · ( l1_ratio·‖M‖₁ + ½(1−l1_ratio)·‖M‖²_F )
 
-Design notes (TPU-first, not a port):
+Design notes (a redesign, not a port):
 - linear-link terms are evaluated via the factored Frobenius identity
   ‖A − M Bᵀ‖² = ‖A‖² − 2⟨A, M Bᵀ⟩ + tr((MᵀM)(BᵀB)); for CSR A the inner
   product is an SDDMM over nonzeros, so the n×m residual is never
@@ -37,42 +37,19 @@ def penalty(M: jnp.ndarray, alpha, l1_ratio) -> jnp.ndarray:
 
 
 def _linear_term(A, M: jnp.ndarray, B: jnp.ndarray,
-                 tiled=None, a_sq=None, bell_t=None,
-                 oh_t=None) -> jnp.ndarray:
-    """½‖A − M Bᵀ‖² via the factored identity (A dense or CSR).
-
-    tiled: optional Pallas tiled-CSR chunks of A — routes the SDDMM through
-    the kernel instead of XLA gathers (slow on TPU).
-    bell_t: optional BlockEll layout of Aᵀ — computes the inner product as
-    Σ((AᵀM) ⊙ B) with one MXU block-sparse pass (preferred).
-    oh_t: optional OneHotStrips layout of Aᵀ — same transpose identity
-    through the scattered-sparsity kernel (ops/pallas/onehot.py)."""
+                 a_sq=None) -> jnp.ndarray:
+    """½‖A − M Bᵀ‖² via the factored identity (A dense, CSR or chunked)."""
     cross = jnp.sum(gram(M) * gram(B))
     from .chunked import chunked_inner, is_chunked
 
     if is_chunked(A):
         # streaming chunked path: a_sq cached at ingest, inner is one
-        # scatter+MXU pass over the chunks (ops/chunked.py)
+        # scatter+matmul pass over the chunks (ops/chunked.py)
         return 0.5 * (A.sq_norm.astype(M.dtype)
                       - 2.0 * chunked_inner(A, M, B) + cross)
     if is_sparse(A):
-        from .pallas.onehot import onehot_ok
-
         a_sq = A.sq_norm
-        if bell_t is not None:
-            from .pallas.bell import bell_inner
-
-            inner = bell_inner(bell_t, M, B)
-        elif oh_t is not None and onehot_ok(oh_t, M.shape[1]):
-            from .pallas.onehot import onehot_spmm
-
-            inner = jnp.sum(onehot_spmm(oh_t, M) * B.astype(M.dtype))
-        elif tiled is not None:
-            from .pallas.spmm import sddmm_rowdots_chunks
-
-            inner = jnp.sum(sddmm_rowdots_chunks(tiled, M, B))
-        else:
-            inner = sddmm_dot(A, M, B)
+        inner = sddmm_dot(A, M, B)
     else:
         if A.dtype != M.dtype and A.size < (1 << 22):
             # Mixed precision (bf16-stored data), small problem: the
@@ -97,7 +74,7 @@ def streamed_inner(A, M: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     Mixed precision (bf16/fp8-stored A, f32 factors) upcasts A in row
     blocks inside a scan so only one block's f32 copy is ever live —
     ``A.astype(f32)`` would transiently hold the whole matrix at 2-4× its
-    storage size in HBM (shards sized to fit because of
+    storage size in device memory (shards sized to fit because of
     data_dtype='bfloat16' could OOM at loss-eval time).
     """
     p, q = A.shape
@@ -227,7 +204,8 @@ def _sigmoid_term(A, M: jnp.ndarray, B: jnp.ndarray,
             w = row_mask[A.row_ids]
             nnz_part = jnp.sum(w * (A.data * A.data - 2.0 * A.data * s_at_nnz))
         else:
-            nnz_part = A.sq_norm - 2.0 * jnp.dot(A.data, s_at_nnz)
+            nnz_part = A.sq_norm - 2.0 * jnp.dot(
+                A.data, s_at_nnz, precision=jax.lax.Precision.HIGHEST)
         return 0.5 * (s_sq + nnz_part)
 
     p, q = A.shape
@@ -261,8 +239,7 @@ def _sigmoid_term(A, M: jnp.ndarray, B: jnp.ndarray,
 
 def reconstruction_term(A, M: jnp.ndarray, B: jnp.ndarray, link: str,
                         row_mask: Optional[jnp.ndarray] = None,
-                        tiled=None, a_sq=None, bell_t=None,
-                        oh_t=None) -> jnp.ndarray:
+                        a_sq=None) -> jnp.ndarray:
     """½‖A − f(M Bᵀ)‖²_F for one coupled matrix.
 
     row_mask (optional, dense/sigmoid paths): per-row weights, used by the
@@ -270,23 +247,18 @@ def reconstruction_term(A, M: jnp.ndarray, B: jnp.ndarray, link: str,
     A and M contribute exactly 0 and need no mask).
     """
     if link == LINEAR:
-        return _linear_term(A, M, B, tiled, a_sq, bell_t, oh_t)
+        return _linear_term(A, M, B, a_sq)
     return _sigmoid_term(A, M, B, row_mask)
 
 
 def total_loss(X, Y, U, V, Z, x_link: str, y_link: str, alpha, l1_ratio,
-               x_row_mask: Optional[jnp.ndarray] = None,
-               x_tiled=None, y_tiled=None, x_a_sq=None,
-               y_a_sq=None, x_bell_t=None, y_bell_t=None,
-               x_oh_t=None, y_oh_t=None) -> jnp.ndarray:
+               x_row_mask: Optional[jnp.ndarray] = None, x_a_sq=None,
+               y_a_sq=None) -> jnp.ndarray:
     """Full CMF objective L(U, V, Z). Y may be None (single-matrix / NMF)."""
-    loss = reconstruction_term(X, U, V, x_link, x_row_mask, x_tiled, x_a_sq,
-                               x_bell_t, oh_t=x_oh_t)
+    loss = reconstruction_term(X, U, V, x_link, x_row_mask, x_a_sq)
     loss = loss + penalty(U, alpha, l1_ratio) + penalty(V, alpha, l1_ratio)
     if Y is not None:
-        loss = loss + reconstruction_term(Y, V, Z, y_link, tiled=y_tiled,
-                                          a_sq=y_a_sq, bell_t=y_bell_t,
-                                          oh_t=y_oh_t)
+        loss = loss + reconstruction_term(Y, V, Z, y_link, a_sq=y_a_sq)
         loss = loss + penalty(Z, alpha, l1_ratio)
     return loss
 

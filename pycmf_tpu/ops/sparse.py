@@ -1,13 +1,12 @@
-"""TPU-friendly sparse matrix support for CMF.
+"""Sparse matrix support for CMF.
 
 The reference accepts ``scipy.sparse`` CSR inputs for the bag-of-words matrix
-(SURVEY.md §2 component 2, BASELINE.json config #3). On TPU we re-design the
-sparse path instead of porting scipy semantics:
+(SURVEY.md §2 component 2, BASELINE.json config #3). Here the sparse path is
+re-designed for jit instead of porting scipy semantics:
 
 - ``CsrMatrix`` is a *static-shape* pytree holding CSR arrays plus a
-  precomputed COO row-id vector (``row_ids``), so that both CSR-style blocked
-  kernels (Pallas, see ops/pallas/spmm.py) and segment-sum SpMM work without
-  any dynamic shapes under ``jit``.
+  precomputed COO row-id vector (``row_ids``), so that segment-sum SpMM
+  works without any dynamic shapes under ``jit``.
 - Transposes are precomputed once on the host at ``fit`` time (the sparsity
   pattern is constant across solver iterations), giving us `X @ B` and
   `Xᵀ @ B` as two forward SpMMs — no on-device transposition.
@@ -15,8 +14,7 @@ sparse path instead of porting scipy semantics:
   be evaluated via the factored identity without densifying
   (SURVEY.md §3.4: "evaluates the residual without densifying").
 
-Everything here is backend-agnostic jnp; the Pallas kernel in
-ops/pallas/spmm.py is an optional drop-in for the hot SpMM.
+Everything here is backend-agnostic jnp.
 """
 from __future__ import annotations
 
@@ -27,7 +25,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .matmul import matmul
 
 
 @jax.tree_util.register_pytree_node_class
@@ -136,8 +133,7 @@ def to_dense(A: CsrMatrix) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# SpMM and SDDMM primitives (jnp segment-sum formulation — the oracle path;
-# the Pallas tiled kernel is an optional replacement, see ops/pallas/spmm.py)
+# SpMM and SDDMM primitives (jnp gather + segment-sum formulation)
 # ---------------------------------------------------------------------------
 
 def spmm(A: CsrMatrix, B: jnp.ndarray) -> jnp.ndarray:
@@ -166,7 +162,7 @@ def sddmm_rowdots(A: CsrMatrix, M: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
 def sddmm_dot(A: CsrMatrix, M: jnp.ndarray, B: jnp.ndarray) -> jnp.ndarray:
     """⟨A, M Bᵀ⟩ (scalar) without densifying."""
     e = jnp.sum(M[A.row_ids] * B[A.indices], axis=1)
-    return jnp.dot(A.data, e)
+    return jnp.dot(A.data, e, precision=jax.lax.Precision.HIGHEST)
 
 
 def row_sq_norms(A: CsrMatrix) -> jnp.ndarray:
@@ -190,13 +186,3 @@ def masked_row_sq_norms(A: CsrMatrix, col_mask: jnp.ndarray) -> jnp.ndarray:
         indices_are_sorted=True,
     )
 
-
-def generic_matmul(A, B: jnp.ndarray, use_pallas: bool = False) -> jnp.ndarray:
-    """A @ B where A is dense or CsrMatrix."""
-    if is_sparse(A):
-        if use_pallas:
-            from .pallas.spmm import spmm_pallas
-
-            return spmm_pallas(A, B)
-        return spmm(A, B)
-    return matmul(A, B)

@@ -1,13 +1,16 @@
 """Mesh construction helpers (SURVEY.md §7 stage 6).
 
-The baseline mandates row-sharding with shared-V all-reduce over ICI
+The baseline mandates row-sharding with a shared-V all-reduce
 (BASELINE.json config #5) — a 1-D mesh. For problems that are jointly huge
 in BOTH n and m, the 2-D grid layout shards X over a (rows × cols) mesh:
 U rides the row axis, V the col axis, and each factor's update psums over
-the OTHER axis only — collectives stay k-shaped and axis-local, exactly
-how ICI wants them (a 2-D torus maps both axes onto wraparound rings).
-On a real pod the devices are already ICI-ordered by jax.devices(); on
-the CPU test backend the virtual devices behave identically (SURVEY §4d).
+the OTHER axis only — collectives stay k-shaped and axis-local.
+
+The meshes take the first devices of jax.devices() in order, with no
+topology search: the target is one host of GPUs joined all to all by
+NVLink, where every pair of cards has the same bandwidth and any order
+is as good as another. On the CPU test backend the virtual devices
+behave identically (SURVEY §4d).
 """
 from __future__ import annotations
 

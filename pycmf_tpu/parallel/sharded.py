@@ -1,15 +1,16 @@
 """Multi-chip CMF: row-sharded solvers over a 1-D device mesh.
 
 This is the build's distributed-communication component (SURVEY.md §5: the
-reference has none; the TPU-native equivalent is XLA collectives over ICI
-inside shard_map). Two layouts, per SURVEY.md §7 stage 6:
+reference has none; here it is XLA collectives inside shard_map, which
+run over NVLink between the cards of one host). Two layouts, per
+SURVEY.md §7 stage 6:
 
 - layout "rows" (A): shard X's rows (n) — U co-sharded, V/Z/Y replicated.
   Each iteration all-reduces (psum over the mesh axis) the shared-V
   numerator+denominator terms (MU: XᵀU and UᵀU) or the stacked per-row
   gradient/Hessian/line-search contributions (Newton), exactly the
   communication pattern BASELINE.json mandates ("row-sharded X/Y across
-  chips with shared-V all-reduce over ICI").
+  chips with shared-V all-reduce").
 - layout "cols" (B): shard the coupled dimension m — X col-sharded,
   Y row-sharded, V co-sharded, U/Z replicated; psums move to U's and Z's
   update terms (MU: X·V and VᵀV; Newton: stacked g/H/φ — _newton_cols_iter).
@@ -92,146 +93,6 @@ def _local_csr(stk: CsrMatrix) -> CsrMatrix:
                      stk.row_ids[0], stk.sq_norm[0], stk.shape)
 
 
-def _stack_tiled_blocks(blocks, dtype, block_rows: int = 128):
-    """Per-shard TiledCsr layouts, stacked on a leading device dim.
-
-    All shards are padded to the same (nb, L) so the stacked arrays are
-    rectangular; the padded entries are exact no-ops (data 0)."""
-    from ..ops.pallas.spmm import TiledCsr, tile_csr_host
-
-    tiles = []
-    for b in blocks:
-        b = sp.csr_matrix(b)
-        tiles.append(tile_csr_host(b.indptr, b.indices, b.data, b.shape,
-                                   block=block_rows, dtype=dtype))
-    nb = max(t.rows.shape[0] for t in tiles)
-    S = max(t.rows.shape[1] for t in tiles)
-    R = tiles[0].block
-
-    def padt(a, fill):
-        a = np.asarray(jax.device_get(a))
-        return np.pad(a, ((0, nb - a.shape[0]), (0, S - a.shape[1]),
-                          (0, 0)), constant_values=fill)
-
-    rows = np.stack([padt(t.rows, R - 1) for t in tiles])
-    cols = np.stack([padt(t.cols, 0) for t in tiles])
-    data = np.stack([padt(t.data, 0) for t in tiles])
-    return TiledCsr(jnp.asarray(rows), jnp.asarray(cols),
-                    jnp.asarray(data, dtype=dtype), tiles[0].shape, R)
-
-
-def _local_tiled(stk):
-    from ..ops.pallas.spmm import TiledCsr
-
-    return TiledCsr(stk.rows[0], stk.cols[0], stk.data[0], stk.shape,
-                    stk.block, stk.col_offset)
-
-
-def _stack_bell_blocks(blocks, dtype, max_bytes):
-    """Per-shard BlockEll layouts stacked on a leading device dim.
-
-    Returns None when any shard's sparsity is too scattered for the block
-    layout to pay off (bell_from_scipy refuses) — the caller falls back to
-    the segment-sum CSR path. Shards are padded to a common block count NB
-    with zero blocks at (row-block nrb−1, col-block 0): brows stay sorted,
-    so the kernel's row-change accumulator logic is untouched, and zero
-    blocks are exact no-ops.
-    """
-    from ..ops.pallas.bell import BlockEll, bell_from_scipy
-
-    bells = []
-    for b in blocks:
-        # return_numpy: stack on the host and upload ONCE — a device
-        # round-trip per shard would double the upload traffic through the
-        # slow device link for large block layouts.
-        bl = bell_from_scipy(b, dtype=dtype, max_bytes=max_bytes,
-                             return_numpy=True)
-        if bl is None:
-            return None
-        bells.append(bl)
-    nb = max(b.blocks.shape[0] for b in bells)
-    R = bells[0].blocks.shape[1]
-    C = bells[0].blocks.shape[2]
-    nrb = -(-bells[0].shape[0] // R)
-    blk, br, bc = [], [], []
-    for b in bells:
-        pad = nb - b.blocks.shape[0]
-        blk.append(np.pad(b.blocks, ((0, pad), (0, 0), (0, 0))))
-        br.append(np.pad(b.brows, (0, pad), constant_values=nrb - 1))
-        bc.append(np.pad(b.bcols, (0, pad)))
-    fill = float(np.mean([b.fill for b in bells]))
-    return BlockEll(jnp.asarray(np.stack(blk), dtype=dtype),
-                    jnp.asarray(np.stack(br)), jnp.asarray(np.stack(bc)),
-                    bells[0].shape, fill)
-
-
-def _local_bell(stk):
-    from ..ops.pallas.bell import BlockEll
-
-    return BlockEll(stk.blocks[0], stk.brows[0], stk.bcols[0], stk.shape,
-                    stk.fill)
-
-
-def _stack_onehot_blocks(blocks, dtype, max_bytes, k):
-    """Per-shard one-hot strip layouts (ops/pallas/onehot.py) stacked on a
-    leading device dim — the scattered-sparsity rung of the sharded sparse
-    decision tree (engaged when the per-shard BlockEll refuses).
-
-    Returns None when any shard's packed strips exceed max_bytes, the
-    dtype has no TPU dot path (f64 parity), or the kernel's VMEM-resident
-    operand/output stacks don't fit for this k (onehot_ok) — the caller
-    falls back to chunked streaming / segment-sum. Shards are padded to a
-    common strip count (multiple of the kernel's G) with zero strips at
-    (block 0, tile 0): zero values contribute exactly nothing.
-    """
-    from ..ops.pallas.onehot import (STRIP_E, STRIP_G, OneHotStrips,
-                                     onehot_from_scipy, onehot_ok)
-
-    bf16 = jnp.dtype(dtype) == jnp.dtype(jnp.bfloat16)
-    if jnp.dtype(dtype) not in (jnp.dtype(jnp.float32),
-                                jnp.dtype(jnp.bfloat16)):
-        return None  # f64 parity runs keep segment-sum (same as one chip)
-    lays = []
-    for b in blocks:
-        if b.nnz == 0:
-            # an all-zero shard (padding block) gets G zero strips — the
-            # kernel still runs, every contribution is exactly zero
-            L = OneHotStrips(np.zeros((STRIP_G, 8, STRIP_E), np.float32),
-                             np.zeros(STRIP_G, np.int32),
-                             np.zeros(STRIP_G, np.int32),
-                             b.shape, 0, dot_bf16=bf16)
-        else:
-            L = onehot_from_scipy(b, dtype=dtype, max_bytes=max_bytes,
-                                  return_numpy=True)
-        if L is None or not onehot_ok(L, k):
-            return None
-        lays.append(L)
-    S = max(L.pk.shape[0] for L in lays)
-    S = -(-S // STRIP_G) * STRIP_G
-    pk = np.stack([np.pad(L.pk, ((0, S - L.pk.shape[0]), (0, 0), (0, 0)))
-                   for L in lays])
-    sb = np.stack([np.pad(L.sb, (0, S - L.sb.shape[0])) for L in lays])
-    st = np.stack([np.pad(L.st, (0, S - L.st.shape[0])) for L in lays])
-    return OneHotStrips(jnp.asarray(pk), jnp.asarray(sb), jnp.asarray(st),
-                        lays[0].shape, max(L.nnz for L in lays),
-                        dot_bf16=lays[0].dot_bf16)
-
-
-def _local_onehot(stk):
-    from ..ops.pallas.onehot import OneHotStrips
-
-    return OneHotStrips(stk.pk[0], stk.sb[0], stk.st[0], stk.shape,
-                        stk.nnz, stk.dot_bf16)
-
-
-def _oh_ok(stk, B) -> bool:
-    """Whether the stacked one-hot layout's kernel stacks fit VMEM for
-    this operand width (static — the shapes are trace-time constants)."""
-    from ..ops.pallas.onehot import onehot_ok
-
-    return onehot_ok(_local_onehot(stk), B.shape[1])
-
-
 class _RowOperands(NamedTuple):
     """Device operands for the rows layout (leading dims sharded over AXIS)."""
     X: object            # dense (n_pad, m) | stacked CsrMatrix (d, ...)
@@ -242,15 +103,9 @@ class _RowOperands(NamedTuple):
     Y: object            # replicated dense (m, r) | CsrMatrix | None
     Yt: object
     mask: jnp.ndarray    # (n_pad,) 1.0 on real rows
-    X_tiled: object = None   # stacked TiledCsr (Pallas path) or None
-    Xt_tiled: object = None
     row_sq: object = None    # (n_pad,) per-row ‖xᵢ‖² (Newton line search)
     row_sq_t: object = None  # (d, m) per-shard col-block norms of Xᵀ rows
     row_sq_t_glob: object = None  # (m,) GLOBAL ‖(Xᵀ)ᵢ‖², replicated
-    X_bell: object = None    # stacked per-shard BlockEll of X (MXU SpMM)
-    Xt_bell: object = None   # stacked per-shard BlockEll of local Xᵀ
-    X_onehot: object = None  # stacked per-shard OneHotStrips (scattered)
-    Xt_onehot: object = None
 
 
 class _ColOperands(NamedTuple):
@@ -259,12 +114,22 @@ class _ColOperands(NamedTuple):
     Xt: object           # None (dense) | stacked CsrMatrix of local (m_loc,n)
     Y: object            # dense (m_loc, r) local rows | None
     mask: jnp.ndarray    # (m_pad,) 1.0 on real shared-dim entries
-    X_bell: object = None    # stacked per-shard BlockEll of local X cols
-    Xt_bell: object = None   # stacked per-shard BlockEll of local Xᵀ
     row_sq: object = None    # (n,) PARTIAL ‖xᵢ‖² over local cols (psummed φ)
     row_sq_t: object = None  # (m_loc,) EXACT ‖(Xᵀ)ᵢ‖² (local Xᵀ rows are full)
-    X_onehot: object = None  # stacked per-shard OneHotStrips (scattered)
-    Xt_onehot: object = None
+
+
+def place_operands(ops, specs, mesh):
+    """Put every device operand on the mesh under its shard_map spec.
+
+    The prepare functions build stacked arrays on the default device; a
+    jit over shard_map would otherwise re-split them from there on every
+    call and keep the whole stack on the first device. After this each
+    device holds only its own shard (replicated specs copy to all)."""
+    from jax.sharding import NamedSharding
+
+    shardings = jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                             is_leaf=lambda x: isinstance(x, P))
+    return jax.device_put(ops, shardings)
 
 
 def _aux_zero_pair(U, V, Z):
@@ -275,18 +140,17 @@ def _aux_zero_pair(U, V, Z):
     return (jnp.zeros_like(V), jnp.zeros((k, k), U.dtype))
 
 
-def _prepare_rows(X, Y, U0, d, dtype, use_pallas: bool = False,
-                  data_dtype=None, chunked: str = "never",
-                  y_link: str = LINEAR):
+def _prepare_rows(X, Y, U0, d, dtype, data_dtype=None,
+                  chunked: str = "never", y_link: str = LINEAR):
     """Split X by rows into d blocks; pad; build transposes per block.
 
     data_dtype: storage dtype for the X/Y shards (None = dtype). bf16
-    halves each chip's HBM data-pass traffic exactly as on one chip;
+    halves each device's data-pass traffic exactly as on one device;
     factors, masks, and norms stay at ``dtype``/f32.
 
-    chunked: 'never' | 'auto' (stream per-shard chunked-COO when the
-    BlockEll layout refuses — scattered sparsity too big to densify
-    locally) | 'force' (sparse_mode='chunked')  — applies to X; a
+    chunked: 'never' (per-shard CSR) | 'auto' / 'force' (per-shard
+    streamed chunked-COO: sparse shards too big to densify locally, or
+    sparse_mode='chunked') — applies to X; a
     SIGMOID-linked sparse Y (replicated in this layout) follows the same
     policy on its own size: device-densify when the dense copy fits the
     threshold, else (or under 'force') the replicated chunked-COO carrier
@@ -295,65 +159,23 @@ def _prepare_rows(X, Y, U0, d, dtype, use_pallas: bool = False,
 
     y_link: the Y matrix's link — sigmoid Y cannot stay CSR (sigmoid
     terms need dense or chunked data)."""
-    from ..ops.pallas.spmm import b_fits_vmem
-
     ddt = dtype if data_dtype is None else data_dtype
     n, m = X.shape
     n_loc = -(-n // d)
     n_pad = d * n_loc
     mask = np.zeros((n_pad,), dtype=np.float64)
     mask[:n] = 1.0
-    X_tiled = Xt_tiled = X_bell = Xt_bell = None
-    X_onehot = Xt_onehot = None
 
     if sp.issparse(X):
         X = sp.csr_matrix(X)
-        blocks, tblocks = [], []
+        blocks = []
         for i in range(d):
             blk = X[i * n_loc: min((i + 1) * n_loc, n)]
             if blk.shape[0] < n_loc:  # pad empty rows
                 blk = sp.vstack([blk, sp.csr_matrix(
                     (n_loc - blk.shape[0], m))]).tocsr()
             blocks.append(blk)
-            tblocks.append(blk.T.tocsr())
-        want_chunked = chunked == "force"
-        if not want_chunked and use_pallas:
-            from ..ops.pallas.policy import kernel_enabled
-
-            if kernel_enabled("bell_spmm"):
-                # Per-shard MXU block-sparse layouts (ops/pallas/bell.py):
-                # the production path for shards too big to densify whose
-                # sparsity is block-structured. Both the forward and the
-                # local-transpose layouts must convert; otherwise fall
-                # through to the options below.
-                from ..utils.validation import DENSIFY_THRESHOLD
-
-                X_bell = _stack_bell_blocks(blocks, ddt,
-                                            DENSIFY_THRESHOLD)
-                Xt_bell = (None if X_bell is None else
-                           _stack_bell_blocks(tblocks, ddt,
-                                              DENSIFY_THRESHOLD))
-                if Xt_bell is None:
-                    X_bell = Xt_bell = None
-            if X_bell is None and kernel_enabled("onehot_spmm"):
-                # Scattered sparsity (BlockEll refused): per-shard one-hot
-                # strip layouts — ~13× the segment-sum floor, ~10× the
-                # chunked-streaming scatter floor, when the kernel's
-                # VMEM-resident stacks fit (ops/pallas/onehot.onehot_ok)
-                from ..utils.validation import DENSIFY_THRESHOLD
-
-                k = U0.shape[1]
-                # ONE stacked layout serves both orientations (round 5):
-                # the transposed contraction rides onehot_spmm_t over the
-                # same per-shard strips (OneHotStripsT view at use sites)
-                X_onehot = _stack_onehot_blocks(blocks, ddt,
-                                                DENSIFY_THRESHOLD, k)
-        if not want_chunked and chunked == "auto" and X_bell is None \
-                and X_onehot is None:
-            # scattered sparsity too big to densify per shard: the
-            # streaming layout beats segment-sum (docs/PERFORMANCE.md)
-            want_chunked = True
-        if want_chunked:
+        if chunked in ("auto", "force"):
             # Per-shard streaming chunked-COO (ops/chunked.py): one
             # layout serves BOTH orientations; no CSR upload at all.
             from ..ops.chunked import stack_chunked_blocks
@@ -362,19 +184,7 @@ def _prepare_rows(X, Y, U0, d, dtype, use_pallas: bool = False,
             Xtd = None
         else:
             Xd = _stack_csr_blocks(blocks, ddt)
-            Xtd = _stack_csr_blocks(tblocks, ddt)
-        if not want_chunked and use_pallas and X_bell is None:
-            from ..ops.pallas.spmm import tpu_spmm_kernel_enabled
-
-            kernels_usable = (jax.default_backend() != "tpu"
-                              or tpu_spmm_kernel_enabled())
-            if kernels_usable:
-                # single-chunk tiled layouts (fall back to segment ops when
-                # the dense operand would overflow VMEM)
-                if b_fits_vmem(m):
-                    X_tiled = _stack_tiled_blocks(blocks, ddt)
-                if b_fits_vmem(n_loc):
-                    Xt_tiled = _stack_tiled_blocks(tblocks, ddt)
+            Xtd = _stack_csr_blocks([b.T.tocsr() for b in blocks], ddt)
     else:
         Xh = np.zeros((n_pad, m), dtype=np.float64)
         Xh[:n] = np.asarray(X)
@@ -418,8 +228,8 @@ def _prepare_rows(X, Y, U0, d, dtype, use_pallas: bool = False,
         rst = np.stack([
             np.asarray(b.multiply(b).sum(axis=0)).ravel() for b in blocks])
     else:
-        # norms from the HOST array: device_get(Xd) would pull the whole
-        # dense matrix back through the device link, and quantized (bf16)
+        # norms from the HOST array: device_get(Xd) would copy the whole
+        # dense matrix back from the device, and quantized (bf16)
         # norms would diverge from the single-chip convention (exact norms
         # from the unquantized input — as_coupled._dense_coupled)
         rs = np.einsum("ij,ij->i", Xh, Xh)   # Xh is already float64
@@ -432,17 +242,14 @@ def _prepare_rows(X, Y, U0, d, dtype, use_pallas: bool = False,
     fdt = jnp.float32 if jnp.dtype(dtype) == jnp.dtype(jnp.bfloat16) \
         else dtype
     ops = _RowOperands(Xd, Xtd, Yd, Ytd, jnp.asarray(mask, dtype=dtype),
-                       X_tiled, Xt_tiled,
                        jnp.asarray(rs, dtype=fdt),
                        jnp.asarray(rst, dtype=fdt),
-                       jnp.asarray(rst.sum(axis=0), dtype=fdt),
-                       X_bell, Xt_bell, X_onehot, Xt_onehot)
+                       jnp.asarray(rst.sum(axis=0), dtype=fdt))
     return ops, jnp.asarray(U_pad, dtype=dtype), n
 
 
-def _prepare_cols(X, Y, V0, d, dtype, use_pallas: bool = False,
-                  data_dtype=None, chunked: str = "never",
-                  y_link: str = LINEAR):
+def _prepare_cols(X, Y, V0, d, dtype, data_dtype=None,
+                  chunked: str = "never", y_link: str = LINEAR):
     """Split the shared dimension m into d blocks (layout B).
 
     Returns (ops, V_pad, m): ops.mask is (m_pad,) with 1.0 on real
@@ -452,7 +259,7 @@ def _prepare_cols(X, Y, V0, d, dtype, use_pallas: bool = False,
     slice — both MU numerators and the Newton linear terms stream it).
 
     y_link: a SIGMOID-linked sparse Y (whose rows ARE the sharded m axis
-    here) never densifies on the host (round-5 VERDICT #4): below the
+    here) never densifies on the host: below the
     densify threshold it device-densifies via scatter_densify (nnz-only
     upload), above it (or under chunked='force') each shard's row slice
     rides the per-shard chunked-COO carrier — the same streamed sigmoid
@@ -464,8 +271,6 @@ def _prepare_cols(X, Y, V0, d, dtype, use_pallas: bool = False,
     m_pad = d * m_loc
     mask = np.zeros((m_pad,), dtype=np.float64)
     mask[:m] = 1.0
-    X_bell = Xt_bell = None
-    X_onehot = Xt_onehot = None
 
     if sp.issparse(X):
         Xc = sp.csc_matrix(X)
@@ -477,42 +282,9 @@ def _prepare_cols(X, Y, V0, d, dtype, use_pallas: bool = False,
                 blk = sp.hstack([blk, sp.csc_matrix(
                     (n, m_loc - blk.shape[1]))])
             blocks.append(sp.csr_matrix(blk))
-        # transposed blocks are built lazily: the chunked layout never
-        # reads them (one forward layout serves both orientations), and
-        # for beyond-HBM X they cost an O(nnz) host transpose per shard
-        tblocks = None
-        want_chunked = chunked == "force"
-        if not want_chunked and use_pallas:
-            from ..ops.pallas.policy import kernel_enabled
-
-            if kernel_enabled("bell_spmm"):
-                # Per-shard MXU block-sparse layouts: same decision tree as
-                # the rows layout (both orientations must convert).
-                from ..utils.validation import DENSIFY_THRESHOLD
-
-                tblocks = [sp.csr_matrix(b.T) for b in blocks]
-                X_bell = _stack_bell_blocks(blocks, ddt,
-                                            DENSIFY_THRESHOLD)
-                Xt_bell = (None if X_bell is None else
-                           _stack_bell_blocks(tblocks, ddt,
-                                              DENSIFY_THRESHOLD))
-                if Xt_bell is None:
-                    X_bell = Xt_bell = None
-            if X_bell is None and kernel_enabled("onehot_spmm"):
-                # scattered sparsity: per-shard one-hot strip layouts
-                # (same decision tree as _prepare_rows)
-                from ..utils.validation import DENSIFY_THRESHOLD
-
-                k = V0.shape[1]
-                if tblocks is None:
-                    tblocks = [sp.csr_matrix(b.T) for b in blocks]
-                # one stacked layout, both orientations (see rows prep)
-                X_onehot = _stack_onehot_blocks(blocks, ddt,
-                                                DENSIFY_THRESHOLD, k)
-        if not want_chunked and chunked == "auto" and X_bell is None \
-                and X_onehot is None:
-            want_chunked = True
-        if want_chunked:
+        # transposed blocks are built only for CSR: the chunked layout
+        # never reads them (one forward layout serves both orientations)
+        if chunked in ("auto", "force"):
             # Per-shard streaming chunked-COO: one row-chunked layout of
             # the local column slice serves both orientations (forward
             # chunks feed chunked_spmm AND chunked_spmm_t).
@@ -521,10 +293,9 @@ def _prepare_cols(X, Y, V0, d, dtype, use_pallas: bool = False,
             Xd = stack_chunked_blocks(blocks, ddt)
             Xtd = None
         else:
-            if tblocks is None:
-                tblocks = [sp.csr_matrix(b.T) for b in blocks]
             Xd = _stack_csr_blocks(blocks, ddt)     # local (n, m_loc)
-            Xtd = _stack_csr_blocks(tblocks, ddt)   # local (m_loc, n)
+            Xtd = _stack_csr_blocks(                # local (m_loc, n)
+                [sp.csr_matrix(b.T) for b in blocks], ddt)
         # fit-time norms: local X rows are column SLICES (partial — the φ
         # psum completes them); local Xᵀ rows are full rows of Xᵀ (exact).
         rs = np.stack([
@@ -561,8 +332,8 @@ def _prepare_cols(X, Y, V0, d, dtype, use_pallas: bool = False,
             yblocks = [Yp[i * m_loc:(i + 1) * m_loc] for i in range(d)]
             Yd = stack_chunked_blocks(yblocks, yddt)
         else:
-            # device-side densify: only the nnz cross the host link and
-            # no dense Y ever exists on the host (mirrors _prepare_rows)
+            # device-side densify: only the nnz are copied to the device
+            # and no dense Y ever exists on the host (mirrors _prepare_rows)
             Yd = scatter_densify(Yp, yddt)
     else:
         if sp.issparse(Y):
@@ -585,10 +356,8 @@ def _prepare_cols(X, Y, V0, d, dtype, use_pallas: bool = False,
     fdt = jnp.float32 if jnp.dtype(dtype) == jnp.dtype(jnp.bfloat16) \
         else dtype
     ops = _ColOperands(Xd, Xtd, Yd, jnp.asarray(mask, dtype=dtype),
-                       X_bell, Xt_bell,
                        jnp.asarray(rs, dtype=fdt),
-                       jnp.asarray(rst, dtype=fdt),
-                       X_onehot, Xt_onehot)
+                       jnp.asarray(rst, dtype=fdt))
     return ops, jnp.asarray(V_pad, dtype=dtype), m
 
 
@@ -610,30 +379,7 @@ def _loss_rows(ops: _RowOperands, U, V, Z, mask, cfg: SolverConfig,
         elif is_sparse(ops.X):
             Xl = _local_csr(ops.X)
             a_sq = Xl.sq_norm
-            if cfg.use_pallas and ops.Xt_bell is not None:
-                # ⟨X_loc, U_loc Vᵀ⟩ = Σ((X_locᵀ U_loc) ⊙ V) — one MXU
-                # block-sparse pass over the local transpose layout.
-                from ..ops.pallas.bell import bell_inner
-
-                inner = bell_inner(_local_bell(ops.Xt_bell), U, V)
-            elif (cfg.use_pallas and ops.X_onehot is not None
-                  and _oh_ok(ops.X_onehot, U)):
-                # same transpose identity through the scattered-sparsity
-                # strip kernel's TRANSPOSED orientation (same strips):
-                # Σ((X_locᵀ U_loc) ⊙ V)
-                from ..ops.pallas.onehot import OneHotStripsT, onehot_spmm
-
-                inner = jnp.sum(
-                    onehot_spmm(OneHotStripsT(
-                        _local_onehot(ops.X_onehot)), U)
-                    * V.astype(U.dtype))
-            elif cfg.use_pallas and ops.X_tiled is not None:
-                from ..ops.pallas.spmm import sddmm_rowdots_tiled
-
-                inner = jnp.sum(sddmm_rowdots_tiled(
-                    _local_tiled(ops.X_tiled), U, V))
-            else:
-                inner = sddmm_dot(Xl, U, V)
+            inner = sddmm_dot(Xl, U, V)
         else:
             # exact fit-time norms (f32/f64) — summing bf16/fp8 squares at
             # data precision would bias the loss — and a factor-precision
@@ -696,8 +442,8 @@ def _aux_loss_rows(cfg: SolverConfig):
 
 def _rows_aux_ok(cfg: SolverConfig, ops: _RowOperands, U) -> bool:
     """Rows-layout aux loss: MU always qualifies when U and V both update
-    (the psummed V terms are computed regardless); Newton needs the fused
-    U-pass. x_link must be linear (the factored identity)."""
+    (the psummed V terms are computed regardless); Newton needs the
+    chunked U-pass. x_link must be linear (the factored identity)."""
     from ..ops.links import LINEAR as _LIN
 
     from ..ops.chunked import is_chunked
@@ -715,22 +461,19 @@ def _rows_aux_ok(cfg: SolverConfig, ops: _RowOperands, U) -> bool:
 
 
 def _rows_aux_ok_newton(cfg: SolverConfig, ops: _RowOperands, U) -> bool:
+    """Newton needs the streamed chunked U-pass, whose accumulators are
+    the aux pair, and a full batch."""
     from ..ops.chunked import is_chunked
-    from ..solvers.newton import fused_newton_u_allowed
 
-    if not _rows_aux_ok(cfg, ops, U):
-        return False
-    if is_chunked(ops.X):
-        return cfg.sg_sample_ratio >= 1.0
-    return fused_newton_u_allowed(cfg, ops.X, ops.row_sq, U)
+    return (_rows_aux_ok(cfg, ops, U) and is_chunked(ops.X)
+            and cfg.sg_sample_ratio >= 1.0)
 
 
 def _aux_loss_rows_phi(cfg: SolverConfig):
     """Eval loss from V's accepted-candidate Σφ (solvers/newton.py φ-aux),
     rows layout: the iter already psummed the X side inside the line
-    search and corrected the fused kernel's padding constants, so the aux
-    scalar is L_X + L_Y + R(V) exactly; add the sharded U's psummed
-    penalty and the replicated Z's."""
+    search, so the aux scalar is L_X + L_Y + R(V) exactly; add the sharded
+    U's psummed penalty and the replicated Z's."""
 
     def loss_fn(state, aux, hyper: Hyper):
         ops, _, U, V, Z = state
@@ -774,8 +517,8 @@ def _rows_aux_kind(cfg: SolverConfig, ops: _RowOperands, U, solver: str):
 # ---------------------------------------------------------------------------
 
 
-def _rows_x_mm(ops: _RowOperands, B, cfg, transpose: bool = False):
-    """X_loc @ B (or X_locᵀ @ B) with the fastest available sparse path."""
+def _rows_x_mm(ops: _RowOperands, B, transpose: bool = False):
+    """X_loc @ B (or X_locᵀ @ B) for dense, CSR or chunked shards."""
     from ..ops.chunked import (chunked_spmm, chunked_spmm_t, is_chunked,
                                local_chunked)
 
@@ -785,26 +528,6 @@ def _rows_x_mm(ops: _RowOperands, B, cfg, transpose: bool = False):
     if not is_sparse(ops.X):
         Xl = ops.X
         return matmul(Xl.T if transpose else Xl, B)
-    if cfg.use_pallas:
-        bell = ops.Xt_bell if transpose else ops.X_bell
-        if bell is not None:
-            from ..ops.pallas.bell import bell_spmm
-
-            return bell_spmm(_local_bell(bell), B)
-        if ops.X_onehot is not None:
-            from ..ops.pallas.onehot import (OneHotStripsT, onehot_ok,
-                                             onehot_spmm)
-
-            ohl = _local_onehot(ops.X_onehot)
-            if transpose:
-                ohl = OneHotStripsT(ohl)
-            if onehot_ok(ohl, B.shape[1]):
-                return onehot_spmm(ohl, B)
-        tiled = ops.Xt_tiled if transpose else ops.X_tiled
-        if tiled is not None:
-            from ..ops.pallas.spmm import spmm_tiled
-
-            return spmm_tiled(_local_tiled(tiled), B)
     return spmm(_local_csr(ops.Xt if transpose else ops.X), B)
 
 
@@ -812,10 +535,8 @@ def _mu_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper,
                   with_aux: bool = False):
     """One MU iteration, rows layout. psums: XᵀU and UᵀU (shared-V terms).
 
-    Dense X with Pallas allowed takes the fused single-X-pass kernel per
-    shard (ops/pallas/mu_fused.py): each chip streams its local X rows once
-    and the kernel's numVᵀ/gramU accumulators are exactly the quantities the
-    layout psums — the multi-chip fusion is free.
+    Chunked X takes the streamed single-X-pass U update per shard: its
+    numV/gramU accumulators are exactly the quantities the layout psums.
 
     with_aux: also return the PSUMMED X-side V terms (ΣXᵀU_new, ΣU_newᵀU_new)
     — already reduced for the V update, they let the fit loop evaluate the
@@ -826,15 +547,7 @@ def _mu_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper,
     l1 = hyper.alpha * hyper.l1_ratio
     l2 = hyper.alpha * (1.0 - hyper.l1_ratio)
     eps = hyper.eps
-    up = cfg.use_pallas
     chunk = is_chunked(ops.X)
-
-    fused = False
-    if up and cfg.update_U and cfg.update_V and not chunk \
-            and not is_sparse(ops.X) and U.dtype != jnp.bfloat16:
-        from ..ops.pallas.policy import kernel_enabled
-
-        fused = kernel_enabled("fused_mu_u_pass")
 
     num_vx = gram_u = None
     VtV = gram(V) if (cfg.update_U or (cfg.has_Y and cfg.update_Z)) else None
@@ -850,26 +563,20 @@ def _mu_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper,
             U, num_vx, gram_u = chunked_mu_u_pass(
                 local_chunked(ops.X), U, V, VtV, l1, l2, eps,
                 row_mask=mask)
-        elif fused:
-            from ..ops.pallas.mu_fused import fused_mu_u_pass
-
-            U, num_vx, gram_u = fused_mu_u_pass(
-                ops.X, U, V, VtV, l1, l2, eps,
-                n_valid=jnp.sum((mask > 0.5).astype(jnp.int32)))
         else:
-            num = _rows_x_mm(ops, V, cfg)
-            U = mu_ratio_update(U, VtV, num, l1, l2, eps, up)
+            num = _rows_x_mm(ops, V)
+            U = mu_ratio_update(U, VtV, num, l1, l2, eps)
             U = jnp.where(mask[:, None] > 0.5, U, 0.0)
     if cfg.has_Y and cfg.update_Z:
         if is_sparse(ops.Y):
             num = spmm(ops.Yt, V)
         else:
             num = matmul(ops.Y.T, V)
-        Z = mu_ratio_update(Z, VtV, num, l1, l2, eps, up)
+        Z = mu_ratio_update(Z, VtV, num, l1, l2, eps)
     aux = None
     if cfg.update_V:
         if num_vx is None:
-            num_vx = _rows_x_mm(ops, U, cfg, transpose=True)
+            num_vx = _rows_x_mm(ops, U, transpose=True)
             gram_u = gram(U)
         num = jax.lax.psum(num_vx, AXIS)             # shared-V all-reduce
         S = jax.lax.psum(gram_u, AXIS)
@@ -878,49 +585,24 @@ def _mu_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper,
             num = num + (spmm(ops.Y, Z) if is_sparse(ops.Y)
                          else matmul(ops.Y, Z))
             S = S + gram(Z)
-        V = mu_ratio_update(V, S, num, l1, l2, eps, up)
+        V = mu_ratio_update(V, S, num, l1, l2, eps)
     if with_aux:
         assert aux is not None, "with_aux requires update_V"
         return U, V, Z, aux
     return U, V, Z
 
 
-def _cols_local_views(ops: _ColOperands, use_pallas: bool):
-    """Local (inside-shard_map) views of the cols operands: (Xl, Xtl,
-    X_layout | None, Xt_layout | None) where a layout is a local BlockEll
-    or OneHotStrips (consumers dispatch on the type — newton's Term
-    machinery via _layout_spmm, MU via _lay_spmm below). Dense Xtl is
-    Xl.T; a chunked Xl carries NO transposed layout (chunked_spmm_t
-    streams the forward chunks)."""
+def _cols_local_views(ops: _ColOperands):
+    """Local (inside-shard_map) views of the cols operands: (Xl, Xtl).
+    Dense Xtl is Xl.T; a chunked Xl carries NO transposed layout
+    (chunked_spmm_t streams the forward chunks), so Xtl is None."""
     from ..ops.chunked import is_chunked, local_chunked
 
     if is_chunked(ops.X):
-        return local_chunked(ops.X), None, None, None
-    sparse_x = is_sparse(ops.X)
-    Xl = _local_csr(ops.X) if sparse_x else ops.X
-    Xtl = _local_csr(ops.Xt) if sparse_x else Xl.T
-    X_bl = Xt_bl = None
-    if use_pallas:
-        if ops.X_bell is not None:
-            X_bl = _local_bell(ops.X_bell)
-        elif ops.X_onehot is not None:
-            X_bl = _local_onehot(ops.X_onehot)
-        if ops.Xt_bell is not None:
-            Xt_bl = _local_bell(ops.Xt_bell)
-        elif ops.X_onehot is not None:
-            from ..ops.pallas.onehot import OneHotStripsT
-
-            Xt_bl = OneHotStripsT(_local_onehot(ops.X_onehot))
-    return Xl, Xtl, X_bl, Xt_bl
-
-
-def _lay_spmm(D, lay, B):
-    """lay @ B through a local kernel layout (BlockEll | OneHotStrips),
-    falling back to segment-sum spmm on D (the matching local CSR) when
-    the one-hot VMEM gate refuses this operand width."""
-    from ..solvers.newton import _layout_spmm
-
-    return _layout_spmm(D, lay, B, use_pallas=True)
+        return local_chunked(ops.X), None
+    if is_sparse(ops.X):
+        return _local_csr(ops.X), _local_csr(ops.Xt)
+    return ops.X, ops.X.T
 
 
 def _mu_cols_iter(ops: _ColOperands, U, V, Z, cfg, hyper,
@@ -939,29 +621,24 @@ def _mu_cols_iter(ops: _ColOperands, U, V, Z, cfg, hyper,
     eps = hyper.eps
     chunk = is_chunked(ops.X)
     sparse_x = is_sparse(ops.X)
-    Xl, Xtl, X_bl, Xt_bl = _cols_local_views(ops, cfg.use_pallas)
+    Xl, Xtl = _cols_local_views(ops)
     Yd = ops.Y
-    up = cfg.use_pallas
 
     VtV = (jax.lax.psum(gram(V), AXIS)
            if (cfg.update_U or (cfg.has_Y and cfg.update_Z)) else None)
     if cfg.update_U:
-        if X_bl is not None:
-            num = jax.lax.psum(_lay_spmm(Xl, X_bl, V), AXIS)
-        elif chunk:
+        if chunk:
             num = jax.lax.psum(chunked_spmm(Xl, V), AXIS)
         else:
             num = jax.lax.psum(
                 spmm(Xl, V) if sparse_x else matmul(Xl, V), AXIS)
-        U = mu_ratio_update(U, VtV, num, l1, l2, eps, up)
+        U = mu_ratio_update(U, VtV, num, l1, l2, eps)
     if cfg.has_Y and cfg.update_Z:
         num = jax.lax.psum(matmul(Yd.T, V), AXIS)
-        Z = mu_ratio_update(Z, VtV, num, l1, l2, eps, up)
+        Z = mu_ratio_update(Z, VtV, num, l1, l2, eps)
     aux = None
     if cfg.update_V:
-        if Xt_bl is not None:
-            num = _lay_spmm(Xtl, Xt_bl, U)
-        elif chunk:
+        if chunk:
             num = chunked_spmm_t(Xl, U)
         else:
             num = spmm(Xtl, U) if sparse_x else matmul(Xtl, U)
@@ -970,7 +647,7 @@ def _mu_cols_iter(ops: _ColOperands, U, V, Z, cfg, hyper,
         if cfg.has_Y:
             num = num + matmul(Yd, Z)
             S = S + gram(Z)
-        V = mu_ratio_update(V, S, num, l1, l2, eps, up)
+        V = mu_ratio_update(V, S, num, l1, l2, eps)
         # shard zero-padding rows are 0·0/0 = NaN when l1 = eps = 0 —
         # force them back to exact zeros before they enter any psum
         V = jnp.where(ops.mask[:, None] > 0.5, V, 0.0)
@@ -986,7 +663,7 @@ def _loss_cols(ops: _ColOperands, U, V, Z, cfg, hyper):
     mask = ops.mask
     Yd = ops.Y
     sparse_x = is_sparse(ops.X)
-    Xl, Xtl, _, Xt_bl = _cols_local_views(ops, cfg.use_pallas)
+    Xl, Xtl = _cols_local_views(ops)
     # One psummed Gram serves both linear terms (x- and y-branch).
     need_gv = cfg.x_link == LINEAR or (cfg.has_Y and cfg.y_link == LINEAR)
     gV = jax.lax.psum(gram(V), AXIS) if need_gv else None
@@ -997,18 +674,7 @@ def _loss_cols(ops: _ColOperands, U, V, Z, cfg, hyper):
             inner = chunked_inner(Xl, U, V)
         elif sparse_x:
             a_sq = Xl.sq_norm
-            if Xt_bl is not None:
-                from ..ops.pallas.bell import BlockEll, bell_inner
-
-                if isinstance(Xt_bl, BlockEll):
-                    inner = bell_inner(Xt_bl, U, V)
-                else:
-                    # one-hot strip layout: same transpose identity,
-                    # Σ((X_locᵀ U) ⊙ V_loc) through the strip kernel
-                    inner = jnp.sum(_lay_spmm(Xtl, Xt_bl, U)
-                                    * V.astype(U.dtype))
-            else:
-                inner = jnp.sum(spmm(Xtl, U) * V)
+            inner = jnp.sum(spmm(Xtl, U) * V)
         else:
             from ..ops.losses import streamed_inner
 
@@ -1185,45 +851,24 @@ def _newton_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper, rng,
     (g, H, φ) contributions psummed (BASELINE.json: "all-reduce of shared-V
     gradient/denominator terms" — here stacked per-row g/H).
 
-    When the fused U-pass runs, its per-shard XᵀU_new / U_newᵀU_new are
-    psummed ONCE and handed to the V update as already-reduced DB/BtB with
-    a replicated global row-norm vector — which removes the per-line-search
-    -trial (m,) φ psums entirely (one (m,k) all-reduce replaces ~9 (m,)
-    ones). with_aux additionally returns the reduced pair for the fit
-    loop's zero-extra-pass loss eval.
+    When the streamed chunked U-pass runs, its per-shard XᵀU_new /
+    U_newᵀU_new are psummed ONCE and handed to the V update as
+    already-reduced DB/BtB with a replicated global row-norm vector —
+    which removes the per-line-search-trial (m,) φ psums entirely (one
+    (m,k) all-reduce replaces ~9 (m,) ones). with_aux additionally returns
+    the reduced pair for the fit loop's zero-extra-pass loss eval.
     """
     kU, kZ, kV = jax.random.split(rng, 3)
     common = dict(trials=cfg.line_search_trials,
                   hessian_form=cfg.hessian_form,
-                  sample_ratio=cfg.sg_sample_ratio,
-                  use_pallas=cfg.use_pallas)
+                  sample_ratio=cfg.sg_sample_ratio)
     from ..ops.chunked import is_chunked, local_chunked
-    from ..solvers.newton import (Term, fused_newton_u_allowed,
-                                  fused_sigmoid_allowed,
-                                  fused_sigmoid_update)
+    from ..solvers.newton import Term
 
     chunk = is_chunked(ops.X)
     sparse_x = is_sparse(ops.X)
     Xl = (local_chunked(ops.X) if chunk
           else _local_csr(ops.X) if sparse_x else ops.X)
-    # Term.tiled accepts either a TiledCsr or a BlockEll; prefer the MXU
-    # block-sparse layout (newton_update_factor dispatches on the type).
-    X_tl = Xt_tl = None
-    if cfg.use_pallas:
-        if ops.X_bell is not None:
-            X_tl = _local_bell(ops.X_bell)
-        elif ops.X_onehot is not None:
-            X_tl = _local_onehot(ops.X_onehot)
-        elif ops.X_tiled is not None:
-            X_tl = _local_tiled(ops.X_tiled)
-        if ops.Xt_bell is not None:
-            Xt_tl = _local_bell(ops.Xt_bell)
-        elif ops.X_onehot is not None:
-            from ..ops.pallas.onehot import OneHotStripsT
-
-            Xt_tl = OneHotStripsT(_local_onehot(ops.X_onehot))
-        elif ops.Xt_tiled is not None:
-            Xt_tl = _local_tiled(ops.Xt_tiled)
 
     chunk_full = chunk and cfg.sg_sample_ratio >= 1.0
     chunk_ok = chunk_full and cfg.x_link == LINEAR
@@ -1232,7 +877,6 @@ def _newton_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper, rng,
     # update consumes XᵀU_new/UᵀU; U-only fold-ins take the generic
     # Term path (one streamed DB pass, no accumulators)
     chunk_pass = chunk_ok and cfg.update_V
-    fused = fused_newton_u_allowed(cfg, Xl, ops.row_sq, U)
     numv_x = gram_u = None
     if cfg.update_U:
         # Sampled chunked X (sg_sample_ratio < 1) falls through to the
@@ -1250,11 +894,12 @@ def _newton_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper, rng,
             U = chunked_sigmoid_row_update(
                 Xl, U, V, hyper, trials=cfg.line_search_trials,
                 non_negative=cfg.U_non_negative,
-                hessian_form=cfg.hessian_form,
-                use_pallas=cfg.use_pallas, row_mask=mask)
+                hessian_form=cfg.hessian_form, row_mask=mask)
         elif chunk_pass:
-            # Streamed per-shard single-X-pass (ops/chunked.py): same
-            # accumulator contract as the fused kernel branch below.
+            # Streamed per-shard single-X-pass (ops/chunked.py): Newton
+            # row updates are row-local, and the pass's XᵀU_new /
+            # U_newᵀU_new accumulators are exactly the shared-V
+            # contributions this layout psums below.
             from ..ops.chunked import chunked_newton_linear_u_pass
             from ..solvers.newton import shared_gauss_hinv
 
@@ -1263,52 +908,25 @@ def _newton_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper, rng,
                 Xl, U, V, BtB, Hinv, ops.row_sq, l1, l2,
                 trials=cfg.line_search_trials,
                 non_negative=cfg.U_non_negative)
-        elif fused:
-            # Single local X pass: Newton row updates are row-local, and the
-            # kernel's XᵀU_new / U_newᵀU_new accumulators are exactly the
-            # shared-V contributions this layout psums below.
-            from ..ops.pallas.newton_fused import fused_newton_linear_u_pass
-            from ..solvers.newton import shared_gauss_hinv
-
-            BtB, Hinv, l1, l2 = shared_gauss_hinv(V, hyper)
-            U, numv_x, gram_u = fused_newton_linear_u_pass(
-                Xl, U, V, BtB, Hinv, ops.row_sq, l1, l2,
-                trials=cfg.line_search_trials,
-                non_negative=cfg.U_non_negative)
-        elif cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, Xl, U):
-            # dense sigmoid per-shard fast path: the U update is row-
-            # local (the m axis is unsharded), so the fused kernels
-            # apply verbatim; padding-row garbage dies on the mask below
-            U = fused_sigmoid_update(
-                U, Xl, V, hyper, trials=cfg.line_search_trials,
-                non_negative=cfg.U_non_negative,
-                use_pallas=cfg.use_pallas)
         else:
             # Local rows — no communication. Per-shard sample keys.
             kU = jax.random.fold_in(kU, jax.lax.axis_index(AXIS))
             U = newton_update_factor(
-                kU, U, (Term(Xl, V, X_tl, ops.row_sq),), (cfg.x_link,),
+                kU, U, (Term(Xl, V, ops.row_sq),), (cfg.x_link,),
                 hyper, non_negative=cfg.U_non_negative, **common)
         U = U * mask[:, None]   # keep padding rows exactly zero
     if cfg.has_Y and cfg.update_Z:
-        if cfg.y_link != LINEAR and fused_sigmoid_allowed(cfg, ops.Y, Z):
-            # Y is replicated in this layout — every shard runs the same
-            # local fused update (mirrors the single-device Z branch so
-            # trajectories stay matched)
-            Z = fused_sigmoid_update(
-                Z, ops.Y.T, V, hyper, trials=cfg.line_search_trials,
-                non_negative=cfg.Z_non_negative, use_pallas=cfg.use_pallas)
-        else:
-            from ..ops.chunked import ChunkedT, is_chunked as _ick
+        from ..ops.chunked import ChunkedT, is_chunked as _ick
 
-            # chunked Y (replicated streamed sigmoid carrier): the Z
-            # update is the transposed orientation — every shard streams
-            # the same chunks, matching the single-chip Z branch
-            Yt = (ChunkedT(ops.Y) if _ick(ops.Y)
-                  else ops.Yt if is_sparse(ops.Y) else ops.Y.T)
-            Z = newton_update_factor(
-                kZ, Z, ((Yt, V),), (cfg.y_link,), hyper,
-                non_negative=cfg.Z_non_negative, **common)
+        # Y is replicated in this layout — every shard runs the same local
+        # update (mirrors the single-device Z branch). Chunked Y (the
+        # replicated streamed sigmoid carrier) is consumed in the
+        # transposed orientation.
+        Yt = (ChunkedT(ops.Y) if _ick(ops.Y)
+              else ops.Yt if is_sparse(ops.Y) else ops.Y.T)
+        Z = newton_update_factor(
+            kZ, Z, ((Yt, V),), (cfg.y_link,), hyper,
+            non_negative=cfg.Z_non_negative, **common)
     aux = None
     if cfg.update_V:
         # chunked: Xl itself is the placeholder D (every V-term below
@@ -1316,13 +934,13 @@ def _newton_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper, rng,
         Xtl = (Xl if chunk
                else _local_csr(ops.Xt) if sparse_x else Xl.T)
         if numv_x is not None:
-            # Reduce the fused U-pass accumulators ONCE; the V update then
-            # sees an already-global X-side term (dist=False) with the
+            # Reduce the U-pass accumulators ONCE; the V update then sees
+            # an already-global X-side term (dist=False) with the
             # replicated global row norms — no per-φ-trial psums.
             num_glob = jax.lax.psum(numv_x, AXIS)
             gram_glob = jax.lax.psum(gram_u, AXIS)
             aux = (num_glob, gram_glob)
-            terms = (Term(Xtl, U, None, ops.row_sq_t_glob,
+            terms = (Term(Xtl, U, ops.row_sq_t_glob,
                           DB=num_glob, BtB=gram_glob),)
             dist = (False,)
         elif chunk_sig or (chunk and cfg.sg_sample_ratio < 1.0):
@@ -1334,7 +952,7 @@ def _newton_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper, rng,
             # Either way the partials psum over the row shards.
             from ..ops.chunked import ChunkedT
 
-            terms = (Term(ChunkedT(Xl), U, None,
+            terms = (Term(ChunkedT(Xl), U,
                           ops.row_sq_t[0] if cfg.x_link == LINEAR
                           else None),)
             dist = (True,)
@@ -1343,59 +961,35 @@ def _newton_rows_iter(ops: _RowOperands, U, V, Z, mask, cfg, hyper, rng,
             # Xᵀ U and UᵀU partials feed the distributed machinery
             from ..ops.chunked import chunked_spmm_t
 
-            terms = (Term(Xtl, U, None, ops.row_sq_t[0],
+            terms = (Term(Xtl, U, ops.row_sq_t[0],
                           DB=chunked_spmm_t(Xl, U), BtB=gram(U)),)
             dist = (True,)
-        elif cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, Xtl, V):
-            # fused partials over the transposed local shard psummed
-            # over the row axis (U's padding rows are zero — see
-            # fused_sigmoid_update's axis_name contract); the REPLICATED
-            # Y term folds in once post-psum, identically on every shard
-            out = fused_sigmoid_update(
-                V, Xtl, U, hyper, trials=cfg.line_search_trials,
-                non_negative=cfg.V_non_negative, use_pallas=cfg.use_pallas,
-                axis_name=AXIS,
-                yterm=Term(ops.Y, Z) if cfg.has_Y else None,
-                y_link=cfg.y_link, return_phi=with_aux == "phi")
-            if with_aux == "phi":
-                # the kernel φ carries the q-axis padding columns' exact
-                # σ(0)=½ constants (⅛ per padding row of X, per V row,
-                # already psummed) — subtract them to recover the true
-                # objective (fused_sigmoid_update's return_phi contract)
-                V, phi_rows = out
-                pad = jax.lax.psum(
-                    Xtl.shape[1] - jnp.sum(mask), AXIS)
-                aux = jnp.sum(phi_rows) - 0.125 * V.shape[0] * pad
-            else:
-                V = out
-            terms = None
         else:
-            terms = (Term(Xtl, U, Xt_tl, ops.row_sq_t[0]),)
+            terms = (Term(Xtl, U, ops.row_sq_t[0]),)
             dist = (True,)
-        if terms is not None:
-            links = (cfg.x_link,)
-            masks = (mask if cfg.x_link != LINEAR else None,)
-            if cfg.has_Y:
-                terms = terms + ((ops.Y, Z),)
-                links = links + (cfg.y_link,)
-                dist = dist + (False,)
-                masks = masks + (None,)
-            out = newton_update_factor(
-                kV, V, terms, links, hyper,
-                non_negative=cfg.V_non_negative, distributed=dist,
-                masks=masks, axis_name=AXIS,
-                return_phi=with_aux == "phi", **common)
-            if with_aux == "phi":
-                # V is replicated here — its per-row φ (X side psummed
-                # inside, Y side replicated) sums to the full objective
-                V, phi_rows = out
-                aux = jnp.sum(phi_rows)
-            else:
-                V = out
+        links = (cfg.x_link,)
+        masks = (mask if cfg.x_link != LINEAR else None,)
+        if cfg.has_Y:
+            terms = terms + ((ops.Y, Z),)
+            links = links + (cfg.y_link,)
+            dist = dist + (False,)
+            masks = masks + (None,)
+        out = newton_update_factor(
+            kV, V, terms, links, hyper,
+            non_negative=cfg.V_non_negative, distributed=dist,
+            masks=masks, axis_name=AXIS,
+            return_phi=with_aux == "phi", **common)
+        if with_aux == "phi":
+            # V is replicated here — its per-row φ (X side psummed
+            # inside, Y side replicated) sums to the full objective
+            V, phi_rows = out
+            aux = jnp.sum(phi_rows)
+        else:
+            V = out
     if with_aux:
         assert aux is not None, \
             ("phi-aux requires update_V" if with_aux == "phi" else
-             "with_aux requires the fused U-pass and update_V")
+             "with_aux requires the chunked U-pass and update_V")
         return U, V, Z, aux
     return U, V, Z
 
@@ -1405,8 +999,7 @@ def _newton_cols_iter(ops: _ColOperands, U, V, Z, cfg, hyper, rng,
     """One Newton iteration, cols layout: the shared dimension m is sharded,
     so V's update is fully LOCAL (its rows see local X columns and local Y
     rows) while U's and Z's (g, H, φ) contributions are psummed — the
-    mirror image of the rows layout. Sparse X terms ride the per-shard
-    BlockEll MXU layouts when available (Term.tiled), with fit-time row
+    mirror image of the rows layout. Sparse X terms use fit-time row
     norms (ops.row_sq partial per shard — completed by the φ psum).
 
     with_aux: also return the LOCAL X-side pair (X_locᵀU_new, U_newᵀU_new)
@@ -1419,129 +1012,78 @@ def _newton_cols_iter(ops: _ColOperands, U, V, Z, cfg, hyper, rng,
     kU, kZ, kV = jax.random.split(rng, 3)
     common = dict(trials=cfg.line_search_trials,
                   hessian_form=cfg.hessian_form,
-                  sample_ratio=cfg.sg_sample_ratio,
-                  use_pallas=cfg.use_pallas)
+                  sample_ratio=cfg.sg_sample_ratio)
     mask = ops.mask
-    from ..ops.chunked import is_chunked as _ick
+    from ..ops.chunked import ChunkedT, chunked_spmm_t, is_chunked
     from ..ops.chunked import local_chunked
 
-    # chunked sigmoid-Y carrier (round-5 VERDICT #4): Y's rows are the
-    # sharded m axis here, so each shard streams its LOCAL row slice —
-    # Z via the transposed orientation below, V's Y-term forward
-    y_chunk = _ick(ops.Y)
+    # chunked sigmoid-Y carrier: Y's rows are the sharded m axis here, so
+    # each shard streams its LOCAL row slice — Z via the transposed
+    # orientation below, V's Y-term forward
+    y_chunk = is_chunked(ops.Y)
     Yd = local_chunked(ops.Y) if y_chunk else ops.Y
-    Xl, Xtl, X_bl, Xt_bl = _cols_local_views(ops, cfg.use_pallas)
+    Xl, Xtl = _cols_local_views(ops)
     xmask = mask if cfg.x_link != LINEAR else None
     ymask = mask if cfg.y_link != LINEAR else None
     rsq = None if ops.row_sq is None else ops.row_sq[0]
     rsq_t = None if ops.row_sq_t is None else ops.row_sq_t[0]
 
-    from ..solvers.newton import fused_sigmoid_allowed, fused_sigmoid_update
-
     if cfg.update_U:
-        if cfg.x_link != LINEAR and fused_sigmoid_allowed(cfg, Xl, U):
-            # distributed fused path: per-shard G/H/φ kernel partials
-            # psummed (padding columns pair with V's zero padding rows —
-            # see fused_sigmoid_update's axis_name contract)
-            U = fused_sigmoid_update(
-                U, Xl, V, hyper, trials=cfg.line_search_trials,
-                non_negative=cfg.U_non_negative, use_pallas=cfg.use_pallas,
-                axis_name=AXIS)
-        else:
-            U = newton_update_factor(
-                kU, U, (Term(Xl, V, X_bl, rsq),), (cfg.x_link,), hyper,
-                non_negative=cfg.U_non_negative, distributed=(True,),
-                masks=(xmask,), axis_name=AXIS, **common)
+        U = newton_update_factor(
+            kU, U, (Term(Xl, V, rsq),), (cfg.x_link,), hyper,
+            non_negative=cfg.U_non_negative, distributed=(True,),
+            masks=(xmask,), axis_name=AXIS, **common)
     if cfg.has_Y and cfg.update_Z:
-        if cfg.y_link != LINEAR and not y_chunk \
-                and fused_sigmoid_allowed(cfg, Yd, Z):
-            Z = fused_sigmoid_update(
-                Z, Yd.T, V, hyper, trials=cfg.line_search_trials,
-                non_negative=cfg.Z_non_negative, use_pallas=cfg.use_pallas,
-                axis_name=AXIS)
-        else:
-            from ..ops.chunked import ChunkedT
-
-            Yt = ChunkedT(Yd) if y_chunk else Yd.T
-            Z = newton_update_factor(
-                kZ, Z, ((Yt, V),), (cfg.y_link,), hyper,
-                non_negative=cfg.Z_non_negative, distributed=(True,),
-                masks=(ymask,), axis_name=AXIS, **common)
+        Yt = ChunkedT(Yd) if y_chunk else Yd.T
+        Z = newton_update_factor(
+            kZ, Z, ((Yt, V),), (cfg.y_link,), hyper,
+            non_negative=cfg.Z_non_negative, distributed=(True,),
+            masks=(ymask,), axis_name=AXIS, **common)
     aux = None
     if cfg.update_V:
-        from ..ops.chunked import chunked_spmm_t, is_chunked
-
         chunk = is_chunked(Xl)
-        if cfg.x_link != LINEAR and not chunk \
-                and fused_sigmoid_allowed(cfg, Xtl, V):
-            # dense sigmoid fast path: V's update is fully local in this
-            # layout (its rows see whole X columns and whole local Y
-            # rows), so the single-device fused call applies verbatim —
-            # two fused passes over the local Xᵀ shard, the (small,
-            # local) Y term folded in on the XLA side; padding rows die
-            # on row_mask inside the kernel wrapper
-            out = fused_sigmoid_update(
-                V, Xtl, U, hyper, trials=cfg.line_search_trials,
-                non_negative=cfg.V_non_negative,
-                use_pallas=cfg.use_pallas,
-                yterm=Term(Yd, Z) if cfg.has_Y else None,
-                y_link=cfg.y_link, row_mask=mask,
-                return_phi=with_aux == "phi")
-            if with_aux == "phi":
-                # row_mask already zeroed the padding rows' φ; the local
-                # sums psum to the full objective (V's rows partition m)
-                V, phi_rows = out
-                aux = jax.lax.psum(jnp.sum(phi_rows), AXIS)
-            else:
-                V = out
+        kV = jax.random.fold_in(kV, jax.lax.axis_index(AXIS))
+        if chunk and cfg.x_link == LINEAR and cfg.sg_sample_ratio >= 1.0:
+            # linear-link V term is fully local here (its rows see
+            # whole X columns): Xᵀ U streams over the forward chunks,
+            # and D is never read once DB/BtB/row_sq are supplied
+            terms = (Term(Xl, U, rsq_t,
+                          DB=chunked_spmm_t(Xl, U), BtB=gram(U)),)
+        elif chunk and cfg.x_link == LINEAR:
+            # sampled linear term: the transposed-orientation marker
+            # lets newton_update_factor recompute the masked DB/BtB/
+            # col norms under its per-shard draw (kV is axis-folded
+            # above, so shards sample independently, exactly like the
+            # dense cols path)
+            terms = (Term(ChunkedT(Xl), U, rsq_t),)
+        elif chunk:
+            # sigmoid V term streamed over the forward chunks
+            # (transposed orientation — the ChunkedT marker); fully
+            # local too, so no psums and no column mask (padding V
+            # rows are re-zeroed below)
+            terms = (Term(ChunkedT(Xl), U),)
         else:
-            kV = jax.random.fold_in(kV, jax.lax.axis_index(AXIS))
-            if chunk and cfg.x_link == LINEAR \
-                    and cfg.sg_sample_ratio >= 1.0:
-                # linear-link V term is fully local here (its rows see
-                # whole X columns): Xᵀ U streams over the forward chunks,
-                # and D is never read once DB/BtB/row_sq are supplied
-                terms = (Term(Xl, U, None, rsq_t,
-                              DB=chunked_spmm_t(Xl, U), BtB=gram(U)),)
-            elif chunk and cfg.x_link == LINEAR:
-                # sampled linear term: the transposed-orientation marker
-                # lets newton_update_factor recompute the masked DB/BtB/
-                # col norms under its per-shard draw (kV is axis-folded
-                # above, so shards sample independently, exactly like the
-                # dense cols path)
-                from ..ops.chunked import ChunkedT
-
-                terms = (Term(ChunkedT(Xl), U, None, rsq_t),)
-            elif chunk:
-                # sigmoid V term streamed over the forward chunks
-                # (transposed orientation — the ChunkedT marker); fully
-                # local too, so no psums and no column mask (padding V
-                # rows are re-zeroed below)
-                from ..ops.chunked import ChunkedT
-
-                terms = (Term(ChunkedT(Xl), U),)
-            else:
-                terms = (Term(Xtl, U, Xt_bl, rsq_t),)
-            links = (cfg.x_link,)
-            if cfg.has_Y:
-                terms = terms + ((Yd, Z),)
-                links = links + (cfg.y_link,)
-            phi_aux = with_aux == "phi"
-            out = newton_update_factor(
-                kV, V, terms, links, hyper,
-                non_negative=cfg.V_non_negative,
-                term_cache=0 if (with_aux and not phi_aux) else None,
-                return_phi=phi_aux, **common)
-            if phi_aux:
-                # the update is fully local here — mask the padding V
-                # rows' φ, then psum the partial sums over the m shards
-                V, phi_rows = out
-                aux = jax.lax.psum(jnp.sum(phi_rows * mask), AXIS)
-            elif with_aux:
-                V, aux = out
-            else:
-                V = out
-            V = V * mask[:, None]   # keep padding rows exactly zero
+            terms = (Term(Xtl, U, rsq_t),)
+        links = (cfg.x_link,)
+        if cfg.has_Y:
+            terms = terms + ((Yd, Z),)
+            links = links + (cfg.y_link,)
+        phi_aux = with_aux == "phi"
+        out = newton_update_factor(
+            kV, V, terms, links, hyper,
+            non_negative=cfg.V_non_negative,
+            term_cache=0 if (with_aux and not phi_aux) else None,
+            return_phi=phi_aux, **common)
+        if phi_aux:
+            # the update is fully local here — mask the padding V
+            # rows' φ, then psum the partial sums over the m shards
+            V, phi_rows = out
+            aux = jax.lax.psum(jnp.sum(phi_rows * mask), AXIS)
+        elif with_aux:
+            V, aux = out
+        else:
+            V = out
+        V = V * mask[:, None]   # keep padding rows exactly zero
     if with_aux:
         assert aux is not None, \
             ("phi-aux requires update_V" if with_aux == "phi" else
@@ -1646,15 +1188,8 @@ def _shard_specs_rows(ops: _RowOperands):
     xt_spec = None if ops.Xt is None else P(AXIS)
     y_spec = None if ops.Y is None else P()
     yt_spec = None if ops.Yt is None else P()
-    xtl_spec = None if ops.X_tiled is None else P(AXIS)
-    xttl_spec = None if ops.Xt_tiled is None else P(AXIS)
-    xb_spec = None if ops.X_bell is None else P(AXIS)
-    xtb_spec = None if ops.Xt_bell is None else P(AXIS)
-    xo_spec = None if ops.X_onehot is None else P(AXIS)
-    xto_spec = None if ops.Xt_onehot is None else P(AXIS)
     return _RowOperands(x_spec, xt_spec, y_spec, yt_spec, P(AXIS),
-                        xtl_spec, xttl_spec, P(AXIS), P(AXIS), P(),
-                        xb_spec, xtb_spec, xo_spec, xto_spec)
+                        P(AXIS), P(AXIS), P())
 
 
 def _make_rows_block(cfg: SolverConfig, mesh, solver: str, ops_specs,
@@ -1718,13 +1253,7 @@ def _shard_specs_cols(ops: _ColOperands):
     xt_spec = None if ops.Xt is None else P(AXIS)
     y_spec = (None if ops.Y is None
               else P(AXIS) if is_chunked(ops.Y) else P(AXIS, None))
-    xb_spec = None if ops.X_bell is None else P(AXIS)
-    xtb_spec = None if ops.Xt_bell is None else P(AXIS)
-    xo_spec = None if ops.X_onehot is None else P(AXIS)
-    xto_spec = None if ops.Xt_onehot is None else P(AXIS)
-    return _ColOperands(x_spec, xt_spec, y_spec, P(AXIS),
-                        xb_spec, xtb_spec, P(AXIS), P(AXIS),
-                        xo_spec, xto_spec)
+    return _ColOperands(x_spec, xt_spec, y_spec, P(AXIS), P(AXIS), P(AXIS))
 
 
 def _make_cols_block(cfg: SolverConfig, mesh, solver: str, ops_specs,
@@ -1785,13 +1314,10 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
     U0/V0/Z0 host ndarrays. Returns the same tuple as run_mu/run_newton.
     loop='device' runs the whole tol loop inside shard_map (one dispatch).
 
-    sparse_mode='auto' densifies a sparse X when each chip's LOCAL shard
-    fits the densify threshold — sharding is the TPU answer to "too big to
-    densify" (docs/PERFORMANCE.md sparse decision tree), and the dense
-    local path runs the fused single-X-pass kernels per shard. 'csr' keeps
-    per-shard sparse layouts: BlockEll MXU block-sparse kernels when the
-    shard's sparsity is block-structured (use_pallas), segment-sum CSR
-    otherwise.
+    sparse_mode='auto' densifies a sparse X when each device's LOCAL
+    shard fits the densify threshold, and streams per-shard chunked-COO
+    above it. 'csr' keeps per-shard segment-sum CSR; 'chunked' forces the
+    streamed layout.
     """
     import time as _time
 
@@ -1807,18 +1333,18 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
 
         n, m = X.shape
         local = (-(-n // d)) * m if layout == "rows" else n * (-(-m // d))
-        # per-shard HBM bytes at the storage dtype — fp8 shards really are
+        # per-shard device bytes at the storage dtype — fp8 shards really are
         # 1 byte/elt (the host densifies in f64 and uploads converted
         # shards; no on-device f32 scatter detour like as_coupled's)
         item = (jnp.dtype(data_dtype).itemsize if data_dtype is not None
                 else jnp.dtype(dtype).itemsize)
         if sparse_mode == "dense" or local * item <= DENSIFY_THRESHOLD:
             # NB single-controller: the HOST materializes the full dense
-            # matrix while splitting; each chip's HBM holds only its shard.
+            # matrix while splitting; each device holds only its shard.
             X = np.asarray(X.todense())
 
     if data_dtype is not None and data_dtype in FP8_DTYPES:
-        # fp8 is the dense fused-kernel fast path only — same rule as
+        # fp8 is a dense-storage format only — same rule as
         # as_coupled (CSR segment ops / chunked streaming have no fp8
         # promotion path). The estimator pre-checks this; direct callers
         # get the same clean error here.
@@ -1835,17 +1361,17 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
         chunked = ("force" if sparse_mode == "chunked"
                    else "auto" if sparse_mode == "auto" else "never")
         ops, U_pad, n = _prepare_rows(X, Y, U0, d, dtype,
-                                      use_pallas=cfg.use_pallas,
                                       data_dtype=data_dtype,
                                       chunked=chunked,
                                       y_link=cfg.y_link)
         V = jnp.asarray(V0, dtype=dtype)
         Z = (jnp.asarray(Z0, dtype=dtype) if Z0 is not None and cfg.has_Y
              else jnp.zeros((0, k), dtype=dtype))
+        specs = _shard_specs_rows(ops)
+        ops = place_operands(ops, specs, mesh)
         aux = _rows_aux_kind(cfg, ops, U_pad, solver)
         if loop == "device":
-            fitf = _make_rows_device_fit(cfg, mesh, solver,
-                                         _shard_specs_rows(ops), aux)
+            fitf = _make_rows_device_fit(cfg, mesh, solver, specs, aux)
             t0 = _time.perf_counter()
             out = fitf(ops, U_pad, V, Z, hyper, rng,
                        jnp.asarray(tol, dtype), max_iter, eval_every)
@@ -1853,8 +1379,7 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
                 out, eval_every, max_iter)
             return (U[:n], V, Z, n_iter, losses, iters,
                     amortize_step_times(_time.perf_counter() - t0, iters))
-        block, loss_fn = _make_rows_block(cfg, mesh, solver,
-                                          _shard_specs_rows(ops), aux)
+        block, loss_fn = _make_rows_block(cfg, mesh, solver, specs, aux)
         state = (ops, U_pad, V, Z)
         state, n_iter, losses, iters, times = run_solver_loop(
             block, state, hyper, (rng, jnp.zeros((), jnp.int32)),
@@ -1867,7 +1392,6 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
         chunked = ("force" if sparse_mode == "chunked"
                    else "auto" if sparse_mode == "auto" else "never")
         ops, V_pad, m = _prepare_cols(X, Y, V0, d, dtype,
-                                      use_pallas=cfg.use_pallas,
                                       data_dtype=data_dtype,
                                       chunked=chunked,
                                       y_link=cfg.y_link)
@@ -1875,6 +1399,7 @@ def run_sharded(solver: str, X, Y, U0, V0, Z0, cfg: SolverConfig,
         Z = (jnp.asarray(Z0, dtype=dtype) if Z0 is not None and cfg.has_Y
              else jnp.zeros((0, k), dtype=dtype))
         specs = _shard_specs_cols(ops)
+        ops = place_operands(ops, specs, mesh)
         aux = _cols_aux_kind(cfg, ops, V_pad, solver)
         if loop == "device":
             fitf = _make_cols_device_fit(cfg, mesh, solver, specs, aux)

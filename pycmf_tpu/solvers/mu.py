@@ -1,4 +1,4 @@
-"""Multiplicative-update (MU) solver, TPU-first.
+"""Multiplicative-update (MU) solver.
 
 Lee–Seung multiplicative updates generalized to the shared factor V
 (SURVEY.md §0 "MU update rules", binding):
@@ -12,14 +12,11 @@ regularized denominators). Update order is pinned to U → Z → V
 (SURVEY.md §7 hard part #4: ordering changes trajectories; this is the
 assumed reference order until parity goldens say otherwise).
 
-TPU design: one iteration is six large matmuls plus elementwise ratio
-updates — pure MXU work. The big SpMM/matmuls run through XLA (or the Pallas
-tiled SpMM for CSR); the per-factor "Gram-matmul + ratio" tail is fused into
-a single Pallas pass over factor tiles when ``use_pallas`` is on
-(BASELINE.json north_star: "numerator/denominator matmuls plus the
-elementwise ratio update in one pass over HBM-resident factor tiles").
-Linear link only; all factors non-negative (validated by the estimator, as
-in the reference).
+Design: one iteration is six large matmuls plus elementwise ratio updates,
+all left to XLA: dense data passes are plain dots, CSR ones gather +
+segment-sum, and XLA fuses each per-factor "Gram-matmul + ratio" tail
+itself. Linear link only; all factors non-negative (validated by the
+estimator, as in the reference).
 """
 from __future__ import annotations
 
@@ -33,21 +30,8 @@ from ..ops.matmul import gram, matmul
 from .common import Coupled, Hyper, SolverConfig, coupled_mm, run_solver_loop
 
 
-def mu_ratio_update(M, S, num, l1, l2, eps, use_pallas: bool = False):
-    """M ⊙ num ⊘ (M S + l1 + l2·M + ε) — the fused MU tail.
-
-    S is the k×k Gram matrix; the Pallas kernel streams row tiles of M/num
-    and performs the (tile×k)·(k×k) MXU matmul and the VPU ratio in one pass,
-    never materializing M S in HBM. Gated off on hardware by default — XLA
-    fuses this epilogue itself (ops/pallas/policy.py).
-    """
-    if use_pallas:
-        from ..ops.pallas.policy import kernel_enabled
-
-        if kernel_enabled("mu_ratio"):
-            from ..ops.pallas.mu_update import fused_mu_update
-
-            return fused_mu_update(M, S, num, l1, l2, eps)
+def mu_ratio_update(M, S, num, l1, l2, eps):
+    """M ⊙ num ⊘ (M S + l1 + l2·M + ε) — the MU tail (S is the k×k Gram)."""
     return M * num / (matmul(M, S) + l1 + l2 * M + eps)
 
 
@@ -68,63 +52,38 @@ def make_mu_step(cfg: SolverConfig, with_aux: bool = False):
         l1 = hyper.alpha * hyper.l1_ratio
         l2 = hyper.alpha * (1.0 - hyper.l1_ratio)
         eps = hyper.eps
-        up = cfg.use_pallas
 
-        from ..ops.chunked import is_chunked as _is_ck
-        from ..ops.pallas.policy import kernel_enabled
-        from ..ops.sparse import is_sparse as _is_sp
-
-        chunked = _is_ck(X.A) and cfg.update_U and cfg.update_V
-        fused = (not chunked and up and cfg.update_U and cfg.update_V
-                 and not _is_sp(X.A) and not _is_ck(X.A)
-                 and U.dtype != jnp.bfloat16
-                 and kernel_enabled("fused_mu_u_pass"))
-        if chunked or fused:
-            # Single-X-pass iteration: the U pass returns U_new plus the
-            # X-side of V's numerator and Gram — mathematically identical
-            # to the U → Z → V order. Two layouts, one contract:
-            # streaming chunked-COO scatter+MXU scan (ops/chunked.py) or
-            # the fused Pallas kernel (ops/pallas/mu_fused.py).
-            if chunked:
-                from ..ops.chunked import chunked_mu_u_pass as u_pass
-            else:
-                from ..ops.pallas.mu_fused import fused_mu_u_pass as u_pass
-            VtV = gram(V)
-            U, num_vx, gram_u = u_pass(X.A, U, V, VtV, l1, l2, eps)
-            if cfg.has_Y and cfg.update_Z:
-                num = coupled_mm(Y, V, transpose=True, use_pallas=up)
-                Z = mu_ratio_update(Z, VtV, num, l1, l2, eps, up)
-            num_v = num_vx
-            S = gram_u
-            if cfg.has_Y:
-                num_v = num_v + coupled_mm(Y, Z, use_pallas=up)
-                S = S + gram(Z)
-            V = mu_ratio_update(V, S, num_v, l1, l2, eps, up)
-            if with_aux:
-                return U, V, Z, (num_vx, gram_u)
-            return U, V, Z
+        from ..ops.chunked import chunked_mu_u_pass, is_chunked
 
         # V is unchanged between the U and Z updates (pinned U → Z → V
         # order), so one Gram serves both.
         VtV = gram(V) if (cfg.update_U or (cfg.has_Y and cfg.update_Z)) \
             else None
+        num_vx = gram_u = None
         if cfg.update_U:
             with jax.named_scope("mu/update_U"):
-                num = coupled_mm(X, V, use_pallas=up)
-                U = mu_ratio_update(U, VtV, num, l1, l2, eps, up)
+                if is_chunked(X.A) and cfg.update_V:
+                    # single X pass: the streamed U pass also returns the
+                    # X-side of V's numerator and Gram (ops/chunked.py)
+                    U, num_vx, gram_u = chunked_mu_u_pass(
+                        X.A, U, V, VtV, l1, l2, eps)
+                else:
+                    num = coupled_mm(X, V)
+                    U = mu_ratio_update(U, VtV, num, l1, l2, eps)
         if cfg.has_Y and cfg.update_Z:
             with jax.named_scope("mu/update_Z"):
-                num = coupled_mm(Y, V, transpose=True, use_pallas=up)
-                Z = mu_ratio_update(Z, VtV, num, l1, l2, eps, up)
+                num = coupled_mm(Y, V, transpose=True)
+                Z = mu_ratio_update(Z, VtV, num, l1, l2, eps)
         if cfg.update_V:
             with jax.named_scope("mu/update_V"):
-                num_vx = coupled_mm(X, U, transpose=True, use_pallas=up)
-                gram_u = gram(U)
+                if num_vx is None:
+                    num_vx = coupled_mm(X, U, transpose=True)
+                    gram_u = gram(U)
                 num, S = num_vx, gram_u
                 if cfg.has_Y:
-                    num = num + coupled_mm(Y, Z, use_pallas=up)
+                    num = num + coupled_mm(Y, Z)
                     S = S + gram(Z)
-                V = mu_ratio_update(V, S, num, l1, l2, eps, up)
+                V = mu_ratio_update(V, S, num, l1, l2, eps)
         if with_aux:
             return U, V, Z, (num_vx, gram_u)
         return U, V, Z
@@ -158,12 +117,8 @@ def _aux_loss(cfg: SolverConfig):
         loss = x_term + penalty(U, hyper.alpha, hyper.l1_ratio) \
             + penalty(V, hyper.alpha, hyper.l1_ratio)
         if cfg.has_Y:
-            yt = Y.A_tiled if cfg.use_pallas else None
-            yb = Y.At_bell if cfg.use_pallas else None
-            yo = Y.At_onehot if cfg.use_pallas else None
-            loss = loss + reconstruction_term(
-                Y.A, V, Z, cfg.y_link, tiled=yt, a_sq=Y.a_sq, bell_t=yb,
-                oh_t=yo)
+            loss = loss + reconstruction_term(Y.A, V, Z, cfg.y_link,
+                                              a_sq=Y.a_sq)
             loss = loss + penalty(Z, hyper.alpha, hyper.l1_ratio)
         return loss
 
@@ -176,20 +131,14 @@ def _aux_ok(cfg: SolverConfig, X: Coupled, U0) -> bool:
     factored identity suffers cancellation (ops/losses.py picks a direct
     streamed residual there — keep the two paths consistent)."""
     from ..ops.chunked import is_chunked as _is_ck
-
-    if _is_ck(X.A):
-        # the chunked step always computes the aux pair (pure XLA — no
-        # Pallas gate), and chunked X is by definition far past the
-        # small-problem cancellation regime
-        return cfg.update_U and cfg.update_V
-    if not (cfg.use_pallas and cfg.update_U and cfg.update_V):
-        return False
     from ..ops.sparse import is_sparse as _is_sp
 
-    if not _is_sp(X.A) and X.A.dtype != U0.dtype \
-            and X.A.size < (1 << 22):
+    if not (cfg.update_U and cfg.update_V):
         return False
-    return True
+    if _is_ck(X.A) or _is_sp(X.A):
+        return True
+    return X.a_sq is not None and not (
+        X.A.dtype != U0.dtype and X.A.size < (1 << 22))
 
 
 @lru_cache(maxsize=None)
@@ -197,17 +146,9 @@ def _loss_core(cfg: SolverConfig):
     def loss_fn(state, hyper: Hyper):
         X, Y, U, V, Z = state
         YA = Y.A if cfg.has_Y else None
-        xt = X.A_tiled if cfg.use_pallas else None
-        yt = (Y.A_tiled if cfg.has_Y and cfg.use_pallas else None)
-        xb = X.At_bell if cfg.use_pallas else None
-        yb = (Y.At_bell if cfg.has_Y and cfg.use_pallas else None)
-        xo = X.At_onehot if cfg.use_pallas else None
-        yo = (Y.At_onehot if cfg.has_Y and cfg.use_pallas else None)
         return total_loss(X.A, YA, U, V, Z, cfg.x_link, cfg.y_link,
-                          hyper.alpha, hyper.l1_ratio,
-                          x_tiled=xt, y_tiled=yt, x_a_sq=X.a_sq,
-                          y_a_sq=(Y.a_sq if cfg.has_Y else None),
-                          x_bell_t=xb, y_bell_t=yb, x_oh_t=xo, y_oh_t=yo)
+                          hyper.alpha, hyper.l1_ratio, x_a_sq=X.a_sq,
+                          y_a_sq=(Y.a_sq if cfg.has_Y else None))
 
     return loss_fn
 
@@ -272,7 +213,7 @@ def run_mu(X: Coupled, Y, U0, V0, Z0, cfg: SolverConfig, hyper: Hyper, *,
     """MU solver driver. loop='host' checks tolerance on the host every
     eval_every iterations (one dispatch per block); loop='device' runs the
     whole tol-checked fit as a single on-device lax.while_loop (one dispatch
-    per fit — the TPU-first default through the estimator)."""
+    per fit)."""
     import time as _time
 
     from .common import amortize_step_times, finish_device_fit

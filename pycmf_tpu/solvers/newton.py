@@ -1,13 +1,14 @@
-"""Batched row-wise Newton solver, TPU-first.
+"""Batched row-wise Newton solver.
 
 The reference's Newton solver iterates rows in Python/numba
-(SURVEY.md §3.1: "per iteration, per factor, per row"). On TPU that
-serialization is exactly what we remove: all rows of a factor are updated at
-once — gradients and k×k Gauss-Newton Hessians are built with batched
-matmuls/einsums on the MXU, the stacked k×k systems are solved in one batched
-solve, and the backtracking line search runs as a fixed number of masked
-trials evaluated for every row in parallel (BASELINE.json north_star:
-"batched per-row Hessian build, solve, and line search on the MXU").
+(SURVEY.md §3.1: "per iteration, per factor, per row"). Here that
+serialization is removed: all rows of a factor are updated at once —
+gradients and k×k Gauss-Newton Hessians are built with batched
+matmuls/einsums, the stacked k×k systems are solved in one batched
+Cholesky (or LU when they may be indefinite), and the backtracking line
+search runs as a fixed number of masked trials evaluated for every row in
+parallel (BASELINE.json north_star: "batched per-row Hessian build, solve,
+and line search").
 
 Per-row math (SURVEY.md §0 "Newton update", binding):
 
@@ -34,8 +35,7 @@ Sparse (CSR) data is supported for linear-link terms without densifying
 terms operate on dense data: the accumulation materializes dense (p, q)
 predictions σ(M Bᵀ) regardless, so CSR storage saves nothing — the estimator
 densifies sparse sigmoid-linked inputs at fit time (models/cmf.py
-``_matrix_sparse_mode``) rather than paying per-nonzero gather/scatter, which
-is pathologically slow on TPU (docs/PERFORMANCE.md).
+``_matrix_sparse_mode``), or streams them in row chunks (newton_chunked.py).
 """
 from __future__ import annotations
 
@@ -55,45 +55,18 @@ from .common import Coupled, Hyper, SolverConfig, run_solver_loop
 class Term(NamedTuple):
     """One coupled data term of a factor update: D ≈ f(M Bᵀ) row-wise.
 
-    tiled  : optional pre-tiled Pallas CSR chunks for D (fit-time constant)
     row_sq : optional precomputed per-row ‖dᵢ‖² (fit-time constant)
     DB     : optional precomputed D @ B (p, k) — e.g. the XᵀU_new
-             accumulator emitted by the fused Newton U-pass kernel, which
+             accumulator emitted by the streamed chunked U-pass, which
              saves the V update its own pass over the data
     BtB    : optional precomputed gram(B) (k, k), paired with DB
     """
 
     D: object
     B: object
-    tiled: object = None
     row_sq: object = None
     DB: object = None
     BtB: object = None
-
-
-def _layout_spmm(D, layout, B, use_pallas: bool):
-    """D @ B through the best fit-time sparse layout: BlockEll (block-
-    structured), OneHotStrips (scattered), TiledCsr chunks; else XLA
-    segment-sum. Layouts are built once in as_coupled; dispatch is on the
-    (static) layout type."""
-    if use_pallas and layout is not None:
-        from ..ops.pallas.bell import BlockEll
-
-        if isinstance(layout, BlockEll):
-            from ..ops.pallas.bell import bell_spmm
-
-            return bell_spmm(layout, B)
-        from ..ops.pallas.onehot import (OneHotStrips, OneHotStripsT,
-                                         onehot_ok, onehot_spmm)
-
-        if isinstance(layout, (OneHotStrips, OneHotStripsT)):
-            if onehot_ok(layout, B.shape[1]):
-                return onehot_spmm(layout, B)
-            return spmm(D, B)
-        from ..ops.pallas.spmm import spmm_chunks
-
-        return spmm_chunks(layout, B)
-    return spmm(D, B)
 
 
 class _LinearCtx(NamedTuple):
@@ -144,8 +117,7 @@ def sample_mask(rng, q: int, ratio: float, dtype):
 
 
 def _accumulate_term(M, D, B, link: str, hessian_form: str, mask,
-                     distributed: bool, tiled=None, row_sq=None,
-                     use_pallas: bool = False, db=None, btb=None):
+                     distributed: bool, row_sq=None, db=None, btb=None):
     """Return (G_term (p,k), H_shared (k,k) | None, H_rows (p,k,k) | None,
     line-search ctx) for one coupled term."""
     from ..ops.chunked import ChunkedT, chunked_spmm, is_chunked
@@ -174,7 +146,7 @@ def _accumulate_term(M, D, B, link: str, hessian_form: str, mask,
             elif is_sparse(D):
                 from ..ops.sparse import masked_row_sq_norms
 
-                DB = _layout_spmm(D, tiled, Bm, use_pallas)
+                DB = spmm(D, Bm)
                 row_sq = masked_row_sq_norms(D, mv)
             else:
                 DB = matmul(D, Bm)
@@ -194,9 +166,9 @@ def _accumulate_term(M, D, B, link: str, hessian_form: str, mask,
 
             DB = chunked_spmm_t(D.ck, B)
         elif is_chunked(D):
-            DB = chunked_spmm(D, B)   # streamed scatter+MXU pass
+            DB = chunked_spmm(D, B)   # streamed scatter+matmul pass
         elif is_sparse(D):
-            DB = _layout_spmm(D, tiled, B, use_pallas)
+            DB = spmm(D, B)
         else:
             DB = matmul(D, B)
         G = matmul(M, BtB) - DB
@@ -256,7 +228,7 @@ def _accumulate_term(M, D, B, link: str, hessian_form: str, mask,
         Rfp = Rfp * mask[None, :]
         W = W * mask[None, :]
     G = matmul(Rfp, B)
-    # H_rows[i] = Bᵀ diag(W_i) B — batched onto the MXU as an einsum.
+    # H_rows[i] = Bᵀ diag(W_i) B — one batched einsum.
     H_rows = jnp.einsum("pq,qk,ql->pkl", W, B, B,
                         precision=jax.lax.Precision.HIGHEST)
     return G, None, H_rows, _SigmoidCtx(D, B, mask, distributed)
@@ -283,35 +255,31 @@ def _phi_term(Mc, ctx) -> jnp.ndarray:
     return 0.5 * jnp.sum(R * R, axis=1)
 
 
-def _solve_direction(H_shared, H_rows, G, use_pallas: bool,
-                     spd: bool = True):
+def _solve_direction(H_shared, H_rows, G, spd: bool = True):
     """d = H⁻¹ g for all rows at once.
 
     spd: the per-row systems are guaranteed positive-definite (true for
-    hessian_form='gauss', where W = f'² ≥ 0 so H ⪰ (l2+pert)·I). With
-    hessian_form='full' the curvature weights can be negative and H
-    indefinite, so the unpivoted Cholesky Pallas kernel is unsafe (silent
-    NaN pivots) — those systems go through jnp.linalg.solve.
+    hessian_form='gauss', where W = f'² ≥ 0 so H ⪰ (l2+pert)·I), and are
+    solved by batched Cholesky. With hessian_form='full' the curvature
+    weights can be negative and H indefinite — an unpivoted Cholesky
+    would produce NaN pivots — so those systems go through
+    jnp.linalg.solve (pivoted LU).
     """
     if H_rows is None:
         # One shared SPD k×k system (all-linear links) — a single solve.
         c, low = jax.scipy.linalg.cho_factor(H_shared)
         return jax.scipy.linalg.cho_solve((c, low), G.T).T
     H = H_rows + H_shared[None, :, :]
-    if use_pallas and spd:
-        from ..ops.pallas.policy import kernel_enabled
-
-        if kernel_enabled("batched_solve"):
-            from ..ops.pallas.batched_solve import batched_spd_solve
-
-            return batched_spd_solve(H, G)
+    if spd:
+        L = jnp.linalg.cholesky(H)
+        return jax.scipy.linalg.cho_solve((L, True), G[..., None])[..., 0]
     return jnp.linalg.solve(H, G[..., None])[..., 0]
 
 
 def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
                          non_negative: bool, trials: int, hessian_form: str,
-                         sample_ratio: float, use_pallas: bool = False,
-                         distributed=(), masks=(), axis_name=None,
+                         sample_ratio: float, distributed=(), masks=(),
+                         axis_name=None,
                          term_cache=None, return_phi: bool = False):
     """One batched Newton update of factor M against its coupled terms.
 
@@ -359,7 +327,7 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     for t, (term, link, dist, mask) in enumerate(
             zip(terms, links, distributed, masks)):
         term = term if isinstance(term, Term) else Term(*term)
-        D, B, tiled, row_sq, db, btb = term
+        D, B, row_sq, db, btb = term
         if sample_ratio < 1.0:
             from ..ops.chunked import ChunkedT as _CkT
             from ..ops.chunked import is_chunked as _is_ck
@@ -375,14 +343,13 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
                 smask = sample_mask(key, q, sample_ratio, M.dtype)
                 if smask is not None:
                     mask = smask if mask is None else mask * smask
-                    tiled = row_sq = db = btb = None  # caches invalidated
+                    row_sq = db = btb = None  # caches invalidated
             else:
                 D, B, mask = _sample_columns(key, D, B, mask, sample_ratio)
-                tiled = row_sq = db = btb = None
+                row_sq = db = btb = None
         G_t, H_sh_t, H_rw_t, ctx = _accumulate_term(
             M, D, B, link, hessian_form, mask, dist,
-            tiled=tiled, row_sq=row_sq, use_pallas=use_pallas,
-            db=db, btb=btb)
+            row_sq=row_sq, db=db, btb=btb)
         if dist:
             G_dist = G_dist + G_t
             if H_sh_t is not None:
@@ -411,8 +378,7 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     if H_rows_dist is not None:
         H_rows = H_rows_dist if H_rows is None else H_rows + H_rows_dist
 
-    d = _solve_direction(H_shared, H_rows, G, use_pallas,
-                         spd=hessian_form == "gauss")
+    d = _solve_direction(H_shared, H_rows, G, spd=hessian_form == "gauss")
 
     def project(Mc):
         return jnp.maximum(Mc, 0.0) if non_negative else Mc
@@ -446,169 +412,13 @@ def newton_update_factor(rng, M, terms, links, hyper: Hyper, *,
     return M_new
 
 
-def fused_newton_u_allowed(cfg: SolverConfig, A, row_sq, U) -> bool:
-    """Static check for the single-X-pass Newton U update (newton_fused.py):
-    linear-link dense full-batch U with the V update to consume the
-    XᵀU_new/gramU accumulators."""
-    from ..ops.chunked import is_chunked as _is_ck
-
-    if not (cfg.use_pallas and cfg.update_U and cfg.update_V
-            and cfg.x_link == LINEAR and cfg.sg_sample_ratio >= 1.0):
-        return False
-    if is_sparse(A) or _is_ck(A) or U.dtype == jnp.bfloat16 \
-            or row_sq is None:
-        return False
-    from ..ops.pallas.policy import kernel_enabled
-
-    return kernel_enabled("fused_newton_u_pass")
-
-
-def fused_sigmoid_allowed(cfg: SolverConfig, A, M) -> bool:
-    """Static check for the fused sigmoid G/H + multi-trial φ kernels
-    (ops/pallas/sigmoid_newton.py): dense full-batch data, Gauss-Newton
-    form (W ≥ 0 → the batched SPD Cholesky solves), kernels allowed."""
-    from ..ops.chunked import is_chunked as _is_ck
-
-    if not (cfg.use_pallas and cfg.sg_sample_ratio >= 1.0
-            and cfg.hessian_form == "gauss"):
-        return False
-    if is_sparse(A) or _is_ck(A) or M.dtype == jnp.bfloat16:
-        return False
-    from ..ops.pallas.policy import kernel_enabled
-
-    return kernel_enabled("sigmoid_newton")
-
-
-def fused_sigmoid_update(M, X, B, hyper: Hyper, *, trials: int,
-                         non_negative: bool, use_pallas: bool,
-                         yterm=None, y_link: str = LINEAR,
-                         row_mask=None, axis_name=None,
-                         return_phi: bool = False):
-    """One fused-kernel Newton update of M (p, k) against X ≈ σ(M Bᵀ),
-    optionally coupled with a second XLA-evaluated term (V's Y side).
-
-    Two X passes total: sigmoid_gh_pass builds G and the stacked
-    Gauss-Newton Hessians without materializing the (p, q) predictions;
-    after the batched SPD solve, sigmoid_phi_pass evaluates EVERY
-    backtracking candidate in one more pass. Selection recomputes the
-    winning candidate from the same f32 formula (identical values).
-
-    row_mask: optional (p,) validity mask — padding rows' σ(0) = ½
-    residuals produce nonzero garbage updates, zeroed after selection
-    (same contract as the chunked sigmoid passes).
-
-    axis_name: when set, X/B hold only this shard's slice of the q axis
-    (M replicated over the mesh axis) and the kernels' G/H/φ partials are
-    psummed. No column mask is needed: the q-axis PADDING columns pair
-    with all-zero B rows (the layouts keep factor padding rows exactly
-    zero), so their G/H contributions vanish identically, and their φ
-    contribution σ(0)=½ is the same constant in every candidate slot —
-    the backtracking rule compares slots, so it cancels. The elastic-net
-    penalties are kept OUT of the kernels (l1=l2=0) and added exactly
-    once after the psum; a yterm is always shard-local (never psummed).
-
-    return_phi: additionally return the PER-ROW φ at the selected
-    candidates (the φ-aux, see newton_update_factor; requires
-    trials >= 1). Padding rows (row_mask) are zeroed. NOTE under
-    axis_name the q-axis padding columns' constant σ(0)=½ residuals DO
-    enter each row's φ (0.125 per padding column, every slot alike) —
-    exact for selection, but callers using Σφ as a loss must subtract
-    that static constant (n_valid_rows · n_pad_cols · 0.125)."""
-    from ..ops.pallas.sigmoid_newton import (sigmoid_gh_pass,
-                                             sigmoid_phi_pass)
-
-    p, k = M.shape
-    dtype = M.dtype
-    l1 = hyper.alpha * hyper.l1_ratio
-    l2 = hyper.alpha * (1.0 - hyper.l1_ratio)
-    zero = jnp.zeros((), dtype)
-
-    if axis_name is None:
-        G, H_rows = sigmoid_gh_pass(X, M, B, l1, l2)
-    else:
-        G, H_rows = sigmoid_gh_pass(X, M, B, zero, zero)
-        G = jax.lax.psum(G, axis_name)
-        H_rows = jax.lax.psum(H_rows, axis_name)
-        G = G + l1 * jnp.sign(M) + l2 * M
-    eye = jnp.eye(k, dtype=dtype)
-    H_shared = (l2 + hyper.hessian_pertubation) * eye
-    ctx_y = None
-    if yterm is not None:
-        t = yterm if isinstance(yterm, Term) else Term(*yterm)
-        G_y, H_sh_y, H_rw_y, ctx_y = _accumulate_term(
-            M, t.D, t.B, y_link, "gauss", None, False, tiled=t.tiled,
-            row_sq=t.row_sq, use_pallas=use_pallas, db=t.DB, btb=t.BtB)
-        G = G + G_y
-        if H_sh_y is not None:
-            H_shared = H_shared + H_sh_y
-        if H_rw_y is not None:
-            H_rows = H_rows + H_rw_y
-    d = _solve_direction(H_shared, H_rows, G, use_pallas, spd=True)
-
-    if trials <= 0:
-        assert not return_phi, "return_phi needs trials >= 1"
-        out = M - d
-        if non_negative:
-            out = jnp.maximum(out, 0.0)
-        return out if row_mask is None else out * row_mask[:, None]
-
-    def project(mc):
-        return jnp.maximum(mc, 0.0) if non_negative else mc
-
-    if axis_name is None:
-        phis = sigmoid_phi_pass(X, M, d, B, l1, l2, trials=trials,
-                                non_negative=non_negative)
-    else:
-        phis = jax.lax.psum(
-            sigmoid_phi_pass(X, M, d, B, zero, zero, trials=trials,
-                             non_negative=non_negative), axis_name)
-
-    if axis_name is not None or ctx_y is not None:
-        # XLA-side φ columns the kernel doesn't carry — the post-psum
-        # penalties (added ONCE, not per shard) and the per-candidate Y
-        # objectives (small matrix, always shard-local) — in one scan
-        # over the candidates (slot 0 = φ(M), unprojected: the kernel's
-        # convention)
-        def extra(mc):
-            tot = jnp.zeros((p,), dtype)
-            if axis_name is not None:
-                tot = (l1 * jnp.sum(jnp.abs(mc), axis=1)
-                       + 0.5 * l2 * jnp.sum(mc * mc, axis=1))
-            if ctx_y is not None:
-                tot = tot + _phi_term(mc, ctx_y)
-            return tot
-
-        def trial(_, s):
-            return None, extra(project(M - s * d))
-
-        steps = 0.5 ** jnp.arange(trials, dtype=dtype)
-        _, extras = jax.lax.scan(trial, None, steps)
-        phis = phis + jnp.concatenate([extra(M)[:, None], extras.T],
-                                      axis=1)
-
-    from ..ops.linesearch import backtracking_select_table
-
-    if return_phi:
-        out, phi_acc = backtracking_select_table(phis, project, M, d,
-                                                 return_phi=True)
-        if row_mask is not None:
-            out = out * row_mask[:, None]
-            phi_acc = phi_acc * row_mask
-        return out, jnp.sum(phi_acc)
-    out = backtracking_select_table(phis, project, M, d)
-    if row_mask is not None:
-        out = out * row_mask[:, None]
-    return out
-
-
 def shared_gauss_hinv(V, hyper: Hyper):
     """(BtB, Hinv, l1, l2) for the shared linear-link Gauss-Newton
     system H = VᵀV + (l2 + hessian_pertubation)·I.
 
-    The damping formula is parity-critical and feeds the same u_pass
-    contract from the single-chip fused/chunked branches AND the sharded
-    rows layout — built in exactly one place so the trajectories cannot
-    desynchronize."""
+    The damping formula is parity-critical and feeds the streamed chunked
+    U-pass on one device AND in the sharded rows layout — built in exactly
+    one place so the trajectories cannot desynchronize."""
     k = V.shape[1]
     l1 = hyper.alpha * hyper.l1_ratio
     l2 = hyper.alpha * (1.0 - hyper.l1_ratio)
@@ -625,7 +435,7 @@ def make_newton_step(cfg: SolverConfig, with_aux=False):
 
     with_aux: zero-extra-pass loss machinery for the fit loops' eval/tol
     checks. True or "factored": additionally return (XᵀU_new, U_newᵀU_new)
-    from the fused U-pass (linear X link; see _aux_loss). "phi": return
+    from the streamed chunked U-pass (linear X link; see _aux_loss). "phi": return
     Σφ from V's line search at the ACCEPTED candidates — V is the last
     factor updated, and its per-row objective sums the X term, the Y term
     and V's own penalty, so Σφ + R(U) + R(Z) is the eval loss with no
@@ -636,8 +446,7 @@ def make_newton_step(cfg: SolverConfig, with_aux=False):
         kU, kZ, kV = jax.random.split(rng, 3)
         common = dict(trials=cfg.line_search_trials,
                       hessian_form=cfg.hessian_form,
-                      sample_ratio=cfg.sg_sample_ratio,
-                      use_pallas=cfg.use_pallas)
+                      sample_ratio=cfg.sg_sample_ratio)
         numv_x = gram_u = None
         phi_sum = None
 
@@ -668,61 +477,38 @@ def make_newton_step(cfg: SolverConfig, with_aux=False):
                 U = chunked_sigmoid_row_update(
                     X.A, U, V, hyper, trials=cfg.line_search_trials,
                     non_negative=cfg.U_non_negative,
-                    hessian_form=cfg.hessian_form,
-                    use_pallas=cfg.use_pallas, col_mask=col_mask)
-            elif chunked or fused_newton_u_allowed(cfg, X.A, X.row_sq, U):
+                    hessian_form=cfg.hessian_form, col_mask=col_mask)
+            elif chunked:
+                # streamed scatter+matmul pass (ops/chunked.py) that also
+                # emits the V update's XᵀU_new / U_newᵀU_new accumulators
+                from ..ops.chunked import chunked_newton_linear_u_pass
+
                 BtB, Hinv, l1, l2 = shared_gauss_hinv(V, hyper)
-                if chunked:
-                    # streamed scatter+MXU pass (ops/chunked.py): same
-                    # math, same accumulator contract as the fused kernel
-                    from ..ops.chunked import (
-                        chunked_newton_linear_u_pass as u_pass)
-                else:
-                    from ..ops.pallas.newton_fused import (
-                        fused_newton_linear_u_pass as u_pass)
-                U, numv_x, gram_u = u_pass(
+                U, numv_x, gram_u = chunked_newton_linear_u_pass(
                     X.A, U, V, BtB, Hinv, X.row_sq, l1, l2,
                     trials=cfg.line_search_trials,
                     non_negative=cfg.U_non_negative)
-            elif cfg.x_link != LINEAR \
-                    and fused_sigmoid_allowed(cfg, X.A, U):
-                # dense sigmoid fast path: two fused X passes (G/H, then
-                # every line-search candidate) — predictions never hit HBM
-                U = fused_sigmoid_update(
-                    U, X.A, V, hyper, trials=cfg.line_search_trials,
-                    non_negative=cfg.U_non_negative,
-                    use_pallas=cfg.use_pallas)
             else:
                 U = newton_update_factor(
-                    kU, U, (Term(X.A, V, X.A_bell or X.A_onehot or X.A_tiled, X.row_sq),),
-                    (cfg.x_link,), hyper,
+                    kU, U, (Term(X.A, V, X.row_sq),), (cfg.x_link,), hyper,
                     non_negative=cfg.U_non_negative, **common)
         if cfg.has_Y and cfg.update_Z:
-            if cfg.y_link != LINEAR and fused_sigmoid_allowed(cfg, Y.A, Z):
-                # dense sigmoid fast path for Z (Y is usually the small
-                # matrix, but the per-trial (q, m) intermediates go too)
-                Z = fused_sigmoid_update(
-                    Z, Y.A.T, V, hyper, trials=cfg.line_search_trials,
-                    non_negative=cfg.Z_non_negative,
-                    use_pallas=cfg.use_pallas)
-            else:
-                if _is_ck(Y.A):
-                    # streamed sigmoid Y (chunked over Y's m rows): Z's
-                    # rows index Y's columns — the transposed-orientation
-                    # builders (chunked_sigmoid_colwise_terms, B = V
-                    # chunked alongside Y's rows) accumulate G/H/φ per
-                    # chunk; Y's dense form never exists on device
-                    from ..ops.chunked import ChunkedT
+            if _is_ck(Y.A):
+                # streamed sigmoid Y (chunked over Y's m rows): Z's
+                # rows index Y's columns — the transposed-orientation
+                # builders (chunked_sigmoid_colwise_terms, B = V
+                # chunked alongside Y's rows) accumulate G/H/φ per
+                # chunk; Y's dense form never exists on device
+                from ..ops.chunked import ChunkedT
 
-                    zterm = Term(ChunkedT(Y.A), V, None, Y.row_sq_t)
-                elif is_sparse(Y.A):
-                    zterm = Term(Y.At, V, Y.At_bell or Y.At_onehot or Y.At_tiled,
-                                 Y.row_sq_t)
-                else:
-                    zterm = Term(Y.A.T, V, None, Y.row_sq_t)
-                Z = newton_update_factor(
-                    kZ, Z, (zterm,), (cfg.y_link,), hyper,
-                    non_negative=cfg.Z_non_negative, **common)
+                zterm = Term(ChunkedT(Y.A), V, Y.row_sq_t)
+            elif is_sparse(Y.A):
+                zterm = Term(Y.At, V, Y.row_sq_t)
+            else:
+                zterm = Term(Y.A.T, V, Y.row_sq_t)
+            Z = newton_update_factor(
+                kZ, Z, (zterm,), (cfg.y_link,), hyper,
+                non_negative=cfg.Z_non_negative, **common)
         if cfg.update_V:
             if _is_ck(X.A):
                 from ..ops.chunked import ChunkedT
@@ -734,7 +520,7 @@ def make_newton_step(cfg: SolverConfig, with_aux=False):
                 elif numv_x is not None:
                     # D is a placeholder: with DB/BtB given the linear-
                     # link term never reads it (_accumulate_term)
-                    terms = (Term(X.A, U, None, X.row_sq_t,
+                    terms = (Term(X.A, U, X.row_sq_t,
                                   DB=numv_x, BtB=gram_u),)
                 elif cfg.sg_sample_ratio < 1.0:
                     # sampled linear: the V update draws its own column
@@ -746,59 +532,33 @@ def make_newton_step(cfg: SolverConfig, with_aux=False):
                     # the rows-sharded layout's chunked V-only contract
                     from ..ops.chunked import chunked_spmm_t
 
-                    terms = (Term(X.A, U, None, X.row_sq_t,
+                    terms = (Term(X.A, U, X.row_sq_t,
                                   DB=chunked_spmm_t(X.A, U),
                                   BtB=gram(U)),)
             elif is_sparse(X.A):
-                terms = (Term(X.At, U, X.At_bell or X.At_onehot or X.At_tiled,
-                              X.row_sq_t),)
-            elif numv_x is not None:
-                # The fused U-pass already produced XᵀU_new and U_newᵀU_new
-                # — the V update's X-side needs no second data pass.
-                terms = (Term(X.A.T, U, None, X.row_sq_t,
-                              DB=numv_x, BtB=gram_u),)
-            elif cfg.x_link != LINEAR \
-                    and fused_sigmoid_allowed(cfg, X.A, V):
-                # dense sigmoid fast path, transposed orientation: V's
-                # rows see X's columns — same two fused passes over Xᵀ,
-                # with the (small) Y term folded in on the XLA side
-                out = fused_sigmoid_update(
-                    V, X.A.T, U, hyper, trials=cfg.line_search_trials,
-                    non_negative=cfg.V_non_negative,
-                    use_pallas=cfg.use_pallas,
-                    yterm=(Term(Y.A, Z, Y.A_bell or Y.A_onehot or Y.A_tiled, Y.row_sq)
-                           if cfg.has_Y else None),
-                    y_link=cfg.y_link, return_phi=phi_aux)
-                if phi_aux:
-                    V, phi_rows = out
-                    phi_sum = jnp.sum(phi_rows)
-                else:
-                    V = out
-                terms = None
+                terms = (Term(X.At, U, X.row_sq_t),)
             else:
-                terms = (Term(X.A.T, U, None, X.row_sq_t),)
-            if terms is not None:
-                links = (cfg.x_link,)
-                if cfg.has_Y:
-                    terms = terms + (Term(Y.A, Z, Y.A_bell or Y.A_onehot or Y.A_tiled,
-                                          Y.row_sq),)
-                    links = links + (cfg.y_link,)
-                out = newton_update_factor(
-                    kV, V, terms, links, hyper,
-                    non_negative=cfg.V_non_negative,
-                    return_phi=phi_aux, **common)
-                if phi_aux:
-                    V, phi_rows = out
-                    phi_sum = jnp.sum(phi_rows)
-                else:
-                    V = out
+                terms = (Term(X.A.T, U, X.row_sq_t),)
+            links = (cfg.x_link,)
+            if cfg.has_Y:
+                terms = terms + (Term(Y.A, Z, Y.row_sq),)
+                links = links + (cfg.y_link,)
+            out = newton_update_factor(
+                kV, V, terms, links, hyper,
+                non_negative=cfg.V_non_negative,
+                return_phi=phi_aux, **common)
+            if phi_aux:
+                V, phi_rows = out
+                phi_sum = jnp.sum(phi_rows)
+            else:
+                V = out
         if phi_aux:
             assert phi_sum is not None, \
                 "phi-aux requires the V update (see _aux_kind)"
             return U, V, Z, phi_sum
         if with_aux:
             assert numv_x is not None, \
-                "with_aux requires the fused U-pass (see _aux_ok)"
+                "with_aux requires the chunked U-pass (see _aux_ok)"
             return U, V, Z, (numv_x, gram_u)
         return U, V, Z
 
@@ -807,7 +567,7 @@ def make_newton_step(cfg: SolverConfig, with_aux=False):
 
 @lru_cache(maxsize=None)
 def _aux_loss(cfg: SolverConfig):
-    """Loss from the fused U-pass accumulators — no pass over X.
+    """Loss from the chunked U-pass accumulators — no pass over X.
 
     Identical in structure to solvers/mu.py:_aux_loss: the linear X term
     via the factored identity with numV = XᵀU_new contracted against the
@@ -822,12 +582,8 @@ def _aux_loss(cfg: SolverConfig):
         loss = x_term + penalty(U, hyper.alpha, hyper.l1_ratio) \
             + penalty(V, hyper.alpha, hyper.l1_ratio)
         if cfg.has_Y:
-            yt = Y.A_tiled if cfg.use_pallas else None
-            yb = Y.At_bell if cfg.use_pallas else None
-            yo = Y.At_onehot if cfg.use_pallas else None
-            loss = loss + reconstruction_term(
-                Y.A, V, Z, cfg.y_link, tiled=yt, a_sq=Y.a_sq, bell_t=yb,
-                oh_t=yo)
+            loss = loss + reconstruction_term(Y.A, V, Z, cfg.y_link,
+                                              a_sq=Y.a_sq)
             loss = loss + penalty(Z, hyper.alpha, hyper.l1_ratio)
         return loss
 
@@ -836,21 +592,13 @@ def _aux_loss(cfg: SolverConfig):
 
 def _aux_ok(cfg: SolverConfig, X: Coupled, U0) -> bool:
     """Aux loss needs a single-X-pass U update emitting fresh XᵀU_new
-    each step (fused kernel OR chunked stream), a linear X link (the
-    identity), and not the small-mixed-precision cancellation regime
-    (mirrors solvers/mu.py:_aux_ok)."""
+    each step (the chunked stream), a linear X link (the identity) and a
+    full batch."""
     from ..ops.chunked import is_chunked as _is_ck
 
-    if _is_ck(X.A):
-        return (cfg.update_U and cfg.update_V and cfg.x_link == LINEAR
-                and cfg.sg_sample_ratio >= 1.0 and X.a_sq is not None)
-    if not fused_newton_u_allowed(cfg, X.A, X.row_sq, U0):
-        return False
-    if X.a_sq is None:
-        return False
-    if X.A.dtype != U0.dtype and X.A.size < (1 << 22):
-        return False
-    return True
+    return (_is_ck(X.A) and cfg.update_U and cfg.update_V
+            and cfg.x_link == LINEAR and cfg.sg_sample_ratio >= 1.0
+            and X.a_sq is not None)
 
 
 @lru_cache(maxsize=None)
@@ -878,7 +626,7 @@ def _aux_loss_phi(cfg: SolverConfig):
 def _aux_kind(cfg: SolverConfig, X: Coupled, U0):
     """Which zero-extra-pass eval-loss machinery applies (or None).
 
-    "factored": linear X link, the fused/chunked U-pass emits (XᵀU, UᵀU).
+    "factored": linear X link, the chunked U-pass emits (XᵀU, UᵀU).
     "phi": any other X link — V's line search evaluates the accepted
     candidate's objective anyway. Needs the V update (the last in the
     step), a real line search (trials ≥ 1), and a full batch (a sampled
@@ -896,17 +644,9 @@ def _loss_core(cfg: SolverConfig):
     def loss_fn(state, hyper: Hyper):
         X, Y, U, V, Z = state
         YA = Y.A if cfg.has_Y else None
-        xt = X.A_tiled if cfg.use_pallas else None
-        yt = (Y.A_tiled if cfg.has_Y and cfg.use_pallas else None)
-        xb = X.At_bell if cfg.use_pallas else None
-        yb = (Y.At_bell if cfg.has_Y and cfg.use_pallas else None)
-        xo = X.At_onehot if cfg.use_pallas else None
-        yo = (Y.At_onehot if cfg.has_Y and cfg.use_pallas else None)
         return total_loss(X.A, YA, U, V, Z, cfg.x_link, cfg.y_link,
-                          hyper.alpha, hyper.l1_ratio,
-                          x_tiled=xt, y_tiled=yt, x_a_sq=X.a_sq,
-                          y_a_sq=(Y.a_sq if cfg.has_Y else None),
-                          x_bell_t=xb, y_bell_t=yb, x_oh_t=xo, y_oh_t=yo)
+                          hyper.alpha, hyper.l1_ratio, x_a_sq=X.a_sq,
+                          y_a_sq=(Y.a_sq if cfg.has_Y else None))
 
     return loss_fn
 

@@ -1,13 +1,13 @@
 """Streamed chunked-COO sigmoid-link Newton (full batch).
 
 Closes the last single-chip scale hole: a sigmoid-linked X too big to
-densify in HBM previously had NO Newton path at all (the estimator
+densify on the device previously had NO Newton path at all (the estimator
 densifies sigmoid inputs because the update materializes dense sigmoid
 predictions — true, but only per ROW CHUNK once the data streams).
 Reference scope: the row-wise Newton solver with sigmoid link
 (SURVEY.md §0 "Newton update", §2 component 4); this module is its
-TPU-shaped big-X form — all FLOPs are (R, m)-block MXU matmuls and the
-dense X never exists on device.
+big-X form — all FLOPs are (R, m)-block matmuls and the dense X never
+exists on device.
 
 Two shapes of work, both scanning the same row-chunked layout
 (ops/chunked.py):
@@ -16,8 +16,7 @@ Two shapes of work, both scanning the same row-chunked layout
   needs only that row of X. Per chunk: scatter-densify ONCE, build
   g/H, batched k×k solve, masked backtracking line search — all trials
   reuse the in-scope chunk, so one iteration costs ONE scatter pass
-  over X (the scatter is the expensive part: the measured XLA floor is
-  ~0.05-0.07 Gnnz/s, docs/PERFORMANCE.md).
+  over X (the scatter is the expected cost; not yet measured on the GPU).
 - **Column-side terms** (V's X-term: rows of V see X's columns): the
   per-row (G, H) of V accumulate across chunks (pass 1), and the
   line-search objective φ accumulates per candidate in one more pass —
@@ -54,8 +53,8 @@ def _sigmoid_parts(Xc, Mc, B, hessian_form: str):
 
 def chunked_sigmoid_row_update(X: ChunkedCoo, M, B, hyper, *,
                                trials: int, non_negative: bool,
-                               hessian_form: str, use_pallas: bool,
-                               row_mask=None, col_mask=None):
+                               hessian_form: str, row_mask=None,
+                               col_mask=None):
     """Row-local streamed Newton update of M (n, k) against X ≈ σ(M Bᵀ).
 
     One lax.scan over the chunks; each body densifies its chunk once and
@@ -96,7 +95,7 @@ def chunked_sigmoid_row_update(X: ChunkedCoo, M, B, hyper, *,
         G = matmul(Rfp, B) + l1 * jnp.sign(mc) + l2 * mc
         H_rows = jnp.einsum("pq,qk,ql->pkl", W, B, B,
                             precision=jax.lax.Precision.HIGHEST)
-        d = _solve_direction(H_shared, H_rows, G, use_pallas, spd=spd)
+        d = _solve_direction(H_shared, H_rows, G, spd=spd)
 
         def phi(Mc):
             r = Xc.astype(Mc.dtype) - jax.nn.sigmoid(matmul(Mc, B.T))

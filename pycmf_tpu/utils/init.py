@@ -4,7 +4,7 @@ Follows sklearn's ``_initialize_nmf`` conventions as the reference does
 (SURVEY.md §0 "Initialization"): seeded random init scaled by
 sqrt(mean(A)/k), plus the NNDSVD family for non-negative warm starts.
 Initialization is O(one SVD) host work done once per fit — it stays on the
-host; only the solver loop runs on TPU.
+host; only the solver loop runs on the accelerator.
 
 The shared factor V receives contributions from both X (as its column
 factor) and Y (as its row factor); we average the two when both are

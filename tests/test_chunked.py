@@ -66,7 +66,7 @@ class TestChunkedOps:
         np.testing.assert_allclose(got, np.asarray(A.todense()))
 
     def test_pick_chunk_rows(self):
-        # small m: capped by MXU-tile multiples of 128
+        # small m: capped by multiples of 128 rows
         assert pick_chunk_rows(10_000, 1000, 256 << 20) % 128 == 0
         # huge m: floor 8, multiple of 8
         r = pick_chunk_rows(10_000, 50_000_000, 256 << 20)
@@ -246,7 +246,7 @@ class TestChunkedNewton:
         U0, V0, Z0 = self._inits(rng)
         kw = dict(n_components=5, solver="newton", max_iter=8, tol=0.0,
                   dtype="float64", random_state=0)
-        md = CMF(sparse_mode="dense", use_pallas=True, **kw).fit(
+        md = CMF(sparse_mode="dense", **kw).fit(
             Xs, Y, U=U0, V=V0, Z=Z0)
         mc = CMF(sparse_mode="chunked", **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
         np.testing.assert_allclose(mc.U_, md.U_, rtol=1e-10, atol=1e-12)
@@ -409,10 +409,10 @@ class TestShardedChunked:
 
         U0 = np.abs(rng.randn(137, 5))
         ops, _, _ = _prepare_rows(Xs, None, U0, 4, jnp.float64,
-                                  use_pallas=False, chunked="auto")
+                                  chunked="auto")
         assert is_chunked(ops.X)
         ops2, _, _ = _prepare_rows(Xs, None, U0, 4, jnp.float64,
-                                   use_pallas=False, chunked="never")
+                                   chunked="never")
         assert not is_chunked(ops2.X)
 
 
@@ -500,10 +500,10 @@ class TestShardedChunkedCols:
 
         V0 = np.abs(rng.randn(90, 5))
         ops, _, _ = _prepare_cols(Xs, None, V0, 4, jnp.float64,
-                                  use_pallas=False, chunked="auto")
+                                  chunked="auto")
         assert is_chunked(ops.X)
         ops2, _, _ = _prepare_cols(Xs, None, V0, 4, jnp.float64,
-                                   use_pallas=False, chunked="never")
+                                   chunked="never")
         assert not is_chunked(ops2.X)
 
 

@@ -230,7 +230,7 @@ class TestAuxLoss:
             .make_problem(rng, n=50, m=30)
         Xc = as_coupled(X, jnp.float64)
         Yc = as_coupled(Y, jnp.float64)
-        cfg = SolverConfig(use_pallas=False)
+        cfg = SolverConfig()
         hyper = make_hyper(alpha=0.1, l1_ratio=0.3, dtype=jnp.float64)
         U = jnp.asarray(np.abs(rng.randn(50, 4)))
         V = jnp.asarray(np.abs(rng.randn(30, 4)))
@@ -242,6 +242,9 @@ class TestAuxLoss:
         assert np.isclose(la, lc, rtol=1e-12)
 
     def test_fit_histories_match_with_tol_stopping(self, rng):
+        """The aux-loss fit (the default) against the float64 reference,
+        which evaluates every loss directly."""
+        from baselines import numpy_cmf
         from tests.conftest import make_problem
 
         from pycmf_tpu import CMF
@@ -252,13 +255,16 @@ class TestAuxLoss:
         Z0 = np.abs(rng.randn(Y.shape[1], 4))
         kw = dict(n_components=4, solver="mu", max_iter=100, tol=1e-5,
                   eval_every=3, dtype="float64")
-        m1 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert m1.n_iter_ == m2.n_iter_
-        assert np.allclose(m1.loss_history_, m2.loss_history_, rtol=1e-10)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-9)
+        m = CMF(**kw).fit(X, Y, U=U0, V=V0, Z=Z0)
+        U, V, Z, n_iter, hist = numpy_cmf.run_mu(
+            X, Y, U0.copy(), V0.copy(), Z0.copy(), max_iter=100, tol=1e-5,
+            eval_every=3)
+        assert m.n_iter_ == n_iter
+        assert np.allclose(m.loss_history_, hist, rtol=1e-10)
+        assert np.allclose(m.U_, U, rtol=1e-9)
 
     def test_sparse_aux_loss(self, rng):
+        from baselines import numpy_cmf
         from tests.conftest import make_problem
 
         from pycmf_tpu import CMF
@@ -269,10 +275,12 @@ class TestAuxLoss:
         Z0 = np.abs(rng.randn(Y.shape[1], 4))
         kw = dict(n_components=4, solver="mu", max_iter=40, tol=1e-5,
                   eval_every=2, dtype="float64", sparse_mode="csr")
-        m1 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert m1.n_iter_ == m2.n_iter_
-        assert np.allclose(m1.loss_history_, m2.loss_history_, rtol=1e-10)
+        m = CMF(**kw).fit(X, Y, U=U0, V=V0, Z=Z0)
+        U, V, Z, n_iter, hist = numpy_cmf.run_mu(
+            X, Y, U0.copy(), V0.copy(), Z0.copy(), max_iter=40, tol=1e-5,
+            eval_every=2)
+        assert m.n_iter_ == n_iter
+        assert np.allclose(m.loss_history_, hist, rtol=1e-10)
 
 
 class TestSklearnTrajectoryParity:

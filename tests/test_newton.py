@@ -171,7 +171,7 @@ class TestNewtonBehavior:
                             binary_y=True)
         m = CMF(n_components=36, solver="newton", y_link="sigmoid",
                 U_non_negative=False, V_non_negative=False,
-                Z_non_negative=False, use_pallas=True, random_state=0,
+                Z_non_negative=False, random_state=0,
                 max_iter=5, tol=0.0)
         m.fit(X, Y)
         assert m.loss_history_[-1] < m.loss_history_[0]
@@ -199,39 +199,49 @@ class TestNewtonBehavior:
 
 
 class TestNewtonAuxLoss:
-    """Zero-extra-pass Newton loss evals (aux from the fused U-pass) must
-    give the same history and stopping decisions as the standalone eval."""
+    """Zero-extra-pass Newton loss evals (aux from the streamed chunked
+    U-pass) must give the same history and stopping decisions as the
+    float64 reference's standalone loss evals."""
 
     def test_fit_histories_match_with_tol_stopping(self, rng):
+        import scipy.sparse as sp
+
+        from baselines import numpy_cmf
         from tests.conftest import make_problem
 
         from pycmf_tpu import CMF
 
         X, Y = make_problem(rng, n=60, m=40, binary_y=True)
+        Xs = sp.csr_matrix(X * (X > np.median(X)))
         U0 = np.abs(rng.randn(60, 4))
         V0 = np.abs(rng.randn(40, 4))
         Z0 = np.abs(rng.randn(Y.shape[1], 4))
         kw = dict(n_components=4, solver="newton", y_link="sigmoid",
                   max_iter=30, tol=1e-7, eval_every=2, dtype="float64",
-                  random_state=0, sparse_mode="dense")
-        m1 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert m1.n_iter_ == m2.n_iter_
-        assert np.allclose(m1.loss_history_, m2.loss_history_, rtol=1e-9)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-7, atol=1e-9)
+                  random_state=0, sparse_mode="chunked")
+        m = CMF(**kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
+        U, V, Z, n_iter, hist = numpy_cmf.run_newton(
+            Xs, Y, U0.copy(), V0.copy(), Z0.copy(), max_iter=30, tol=1e-7,
+            eval_every=2, y_link="sigmoid")
+        assert m.n_iter_ == n_iter
+        assert np.allclose(m.loss_history_, hist, rtol=1e-9)
+        assert np.allclose(m.U_, U, rtol=1e-7, atol=1e-9)
 
     def test_device_loop_aux_matches_host(self, rng):
         from tests.conftest import make_problem
 
         from pycmf_tpu import CMF
 
-        X, Y = make_problem(rng, n=60, m=40)
+        import scipy.sparse as sp
+
+        X, Y = make_problem(rng, n=60, m=40, sparse=True)
         U0 = np.abs(rng.randn(60, 4))
         V0 = np.abs(rng.randn(40, 4))
         Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="newton", use_pallas=True,
+        kw = dict(n_components=4, solver="newton", sparse_mode="chunked",
                   max_iter=12, tol=1e-7, eval_every=5, dtype="float64",
                   random_state=0)
+        assert sp.issparse(X)
         m1 = CMF(loop="host", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
         m2 = CMF(loop="device", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
         assert m1.n_iter_ == m2.n_iter_

@@ -284,19 +284,18 @@ class TestPhiAuxSharded:
     """Sharded φ-aux (rows/cols): the REPORTED eval loss must equal the
     independent numpy loss of the returned factors — an absolute check,
     so a consistently-wrong aux on both sides of a parity pair cannot
-    hide. Both the fused-kernel (interpret-mode) and masked-XLA branches
-    are exercised; the fused rows branch additionally covers the
-    padding-column constant correction (n=67 is not divisible by 8)."""
+    hide. Both fit loops are exercised; n=67 is not divisible by 8, so
+    the padding rows' masks are too."""
 
     @pytest.mark.parametrize("layout", ["rows", "cols"])
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    def test_reported_loss_is_exact(self, rng, layout, use_pallas):
+    @pytest.mark.parametrize("loop", ["host", "device"])
+    def test_reported_loss_is_exact(self, rng, layout, loop):
         X, Y = _sigmoid_problem(rng, n=67, m=53, r=9)
         U0, V0, Z0 = _inits(rng, 67, 53, 9, 4)
         m = CMF(n_components=4, solver="newton", x_link="sigmoid",
                 max_iter=6, eval_every=3, tol=0.0, dtype="float64",
                 alpha=0.07, l1_ratio=0.3, n_shards=8, shard_layout=layout,
-                use_pallas=use_pallas, U_non_negative=False,
+                loop=loop, U_non_negative=False,
                 V_non_negative=False, Z_non_negative=False)
         m.fit(X, Y, U=U0, V=V0, Z=Z0)
         want = _manual_loss(X, Y, m, "sigmoid", "linear",
@@ -350,18 +349,17 @@ class TestPhiAuxSharded:
 
 class TestPhiAuxGrid:
     """Grid-layout φ-aux: X-side φ psummed over ROW inside the line
-    search, masked row sums psummed over COL; the fused branch's padding
-    constant correction is 2-D (padded n AND padded m: 67×53 on a 2×4
-    grid pads both axes)."""
+    search, masked row sums psummed over COL; 67×53 on a 2×4 grid pads
+    both axes."""
 
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    def test_reported_loss_is_exact(self, rng, use_pallas):
+    @pytest.mark.parametrize("loop", ["host", "device"])
+    def test_reported_loss_is_exact(self, rng, loop):
         X, Y = _sigmoid_problem(rng, n=67, m=53, r=9)
         U0, V0, Z0 = _inits(rng, 67, 53, 9, 4)
         m = CMF(n_components=4, solver="newton", x_link="sigmoid",
                 max_iter=6, eval_every=3, tol=0.0, dtype="float64",
                 alpha=0.07, l1_ratio=0.3, n_shards=(2, 4),
-                shard_layout="grid", use_pallas=use_pallas,
+                shard_layout="grid", loop=loop,
                 U_non_negative=False, V_non_negative=False,
                 Z_non_negative=False)
         m.fit(X, Y, U=U0, V=V0, Z=Z0)

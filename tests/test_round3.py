@@ -1,8 +1,7 @@
 """Round-3 regression tests: advisor findings + verdict weak items.
 
-Covers (ADVICE.md round 2):
+Covers:
 - n_shards validation rejects silent-disable typos (0, -2, floats, bools)
-- bell_from_scipy(return_numpy=True) stays on the host
 - streamed_inner matches the direct upcast inner product
 """
 from __future__ import annotations
@@ -33,33 +32,6 @@ class TestNShardsValidation:
         nd = len(jax.devices())
         assert CMF(n_components=2, n_shards=-1)._resolve_n_shards() == nd
         assert CMF(n_components=2, n_shards="all")._resolve_n_shards() == nd
-
-
-class TestHostSideBell:
-    def test_return_numpy_stays_on_host(self):
-        from pycmf_tpu.ops.pallas.bell import bell_from_scipy
-
-        rng = np.random.RandomState(0)
-        A = sp.random(300, 260, density=0.05, random_state=rng,
-                      format="csr")
-        host = bell_from_scipy(A, dtype=jnp.float32, return_numpy=True)
-        dev = bell_from_scipy(A, dtype=jnp.float32)
-        assert isinstance(host.blocks, np.ndarray)
-        assert isinstance(host.brows, np.ndarray)
-        np.testing.assert_array_equal(host.brows, np.asarray(dev.brows))
-        np.testing.assert_array_equal(host.bcols, np.asarray(dev.bcols))
-        np.testing.assert_allclose(host.blocks, np.asarray(dev.blocks),
-                                   rtol=0, atol=0)
-
-    def test_return_numpy_bf16(self):
-        from pycmf_tpu.ops.pallas.bell import bell_from_scipy
-
-        rng = np.random.RandomState(1)
-        A = sp.random(200, 200, density=0.1, random_state=rng, format="csr")
-        host = bell_from_scipy(A, dtype=jnp.bfloat16, return_numpy=True)
-        assert host.blocks.dtype == jnp.bfloat16
-        dev_up = jnp.asarray(host.blocks)
-        assert dev_up.dtype == jnp.bfloat16
 
 
 class TestStreamedInner:
@@ -183,7 +155,7 @@ class TestEpsZeroShardedParity:
     eps=0, alpha=0 — the zero-padding rows' ratio update is 0·0/0 = NaN
     without the l1/ε guard, and one NaN row poisons every psummed term
     (0·NaN = NaN). The fix forces padding rows to exact zeros after each
-    MU ratio update (and in-kernel for the fused/chunked passes); the
+    MU ratio update (and in-pass for the chunked stream); the
     single-device fit (no padding) is the parity reference."""
 
     def _problem(self, rng):
@@ -198,10 +170,9 @@ class TestEpsZeroShardedParity:
 
     @pytest.mark.parametrize("kw", [
         dict(n_shards=8),
-        dict(n_shards=8, use_pallas=True),
         dict(n_shards=8, shard_layout="cols"),
         dict(n_shards=(2, 4), shard_layout="grid"),
-    ], ids=["rows", "rows-fused", "cols", "grid"])
+    ], ids=["rows", "cols", "grid"])
     def test_dense_layouts_match_single(self, rng, kw):
         import jax
 

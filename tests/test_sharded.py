@@ -100,188 +100,6 @@ class TestRowsLayout:
         assert np.allclose(m1.V_, m2.V_, rtol=1e-8, atol=1e-10)
 
 
-class TestRowsPallas:
-    def test_mu_sparse_pallas_matches(self, rng):
-        """Sharded rows layout with the tiled-CSR Pallas kernels (interpret
-        mode on CPU) must match the segment-sum sharded path exactly."""
-        X, Y = make_problem(rng, n=67, m=40, sparse=True)
-        m1, m2 = _fit_pair(X, Y, rng, max_iter=15, use_pallas=False)
-        m3 = CMF(n_components=4, solver="mu", max_iter=15, tol=0.0,
-                 dtype="float64", n_shards=8, use_pallas=True,
-                 sparse_mode="csr")
-        # refit from m2's fitted factors so both runs are deterministic
-        m3.fit(X, Y, U=m2.U_, V=m2.V_, Z=m2.Z_)
-        m4 = CMF(n_components=4, solver="mu", max_iter=15, tol=0.0,
-                 dtype="float64", n_shards=8, use_pallas=False,
-                 sparse_mode="csr")
-        m4.fit(X, Y, U=m2.U_, V=m2.V_, Z=m2.Z_)
-        assert np.allclose(m3.U_, m4.U_, rtol=1e-9)
-        assert np.allclose(m3.V_, m4.V_, rtol=1e-9)
-        assert np.allclose(m3.loss_history_, m4.loss_history_, rtol=1e-10)
-
-    def test_newton_sparse_pallas_matches(self, rng):
-        X, Y = make_problem(rng, n=67, m=40, sparse=True)
-        U0 = np.abs(rng.randn(X.shape[0], 4))
-        V0 = np.abs(rng.randn(X.shape[1], 4))
-        Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="newton", max_iter=6, tol=0.0,
-                  dtype="float64", n_shards=8, sparse_mode="csr")
-        m1 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-8, atol=1e-10)
-        assert np.allclose(m1.V_, m2.V_, rtol=1e-8, atol=1e-10)
-
-
-class TestFusedSigmoidSharded:
-    """The dense-sigmoid fused kernels must actually be TAKEN inside the
-    sharded layouts (rows: U update; cols: V update + folded Y term), not
-    silently fall back to the masked XLA path, and must match that path."""
-
-    def _spy(self, monkeypatch):
-        import pycmf_tpu.solvers.newton as nt
-
-        calls = []
-        orig = nt.fused_sigmoid_update
-
-        def spy(*a, **k):
-            calls.append(k)
-            return orig(*a, **k)
-
-        monkeypatch.setattr(nt, "fused_sigmoid_update", spy)
-        return calls
-
-    def _pallas_pair(self, X, Y, rng, layout, k=4):
-        U0 = np.abs(rng.randn(X.shape[0], k))
-        V0 = np.abs(rng.randn(X.shape[1], k))
-        Z0 = np.abs(rng.randn(Y.shape[1], k))
-        out = []
-        for up in (True, False):
-            m = CMF(n_components=k, solver="newton", max_iter=5, tol=0.0,
-                    dtype="float64", x_link="sigmoid", n_shards=8,
-                    shard_layout=layout, use_pallas=up,
-                    U_non_negative=False, V_non_negative=False,
-                    Z_non_negative=False)
-            m.fit(X, Y, U=U0, V=V0, Z=Z0)
-            out.append(m)
-        return out
-
-    def test_rows_u_update_takes_fused_branch(self, rng, monkeypatch):
-        calls = self._spy(monkeypatch)
-        X, Y = make_problem(rng, n=67, m=40, non_negative=False)
-        X = (X > np.median(X)).astype(float)
-        mf, mx = self._pallas_pair(X, Y, rng, "rows")
-        axes = [k.get("axis_name") for k in calls]
-        assert any(a is None for a in axes), \
-            "rows-sharded row-local fused U update never traced"
-        assert any(a is not None for a in axes), \
-            "rows-sharded psummed fused V update never traced"
-        assert np.allclose(mf.U_, mx.U_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.V_, mx.V_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.loss_history_, mx.loss_history_, rtol=1e-10)
-
-    def test_rows_nonneg_distributed_fused(self, rng, monkeypatch):
-        """Projection active on the psummed fused path: the post-psum
-        penalty columns must be evaluated at the PROJECTED candidates
-        (pen(project(M − s·d))) for the accept rule to match XLA."""
-        calls = self._spy(monkeypatch)
-        X, Y = make_problem(rng, n=67, m=40, binary_y=True)
-        X = (X > np.median(X)).astype(float)
-        k = 4
-        U0 = np.abs(rng.randn(X.shape[0], k))
-        V0 = np.abs(rng.randn(X.shape[1], k))
-        Z0 = np.abs(rng.randn(Y.shape[1], k))
-        out = []
-        for up in (True, False):
-            m = CMF(n_components=k, solver="newton", max_iter=5, tol=0.0,
-                    dtype="float64", x_link="sigmoid", y_link="sigmoid",
-                    alpha=0.1, l1_ratio=0.4, n_shards=8, use_pallas=up)
-            m.fit(X, Y, U=U0, V=V0, Z=Z0)
-            out.append(m)
-        mf, mx = out
-        assert any(k.get("axis_name") is not None for k in calls)
-        assert np.all(np.asarray(mf.U_) >= 0) and np.all(
-            np.asarray(mf.V_) >= 0)
-        assert np.allclose(mf.U_, mx.U_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.V_, mx.V_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.Z_, mx.Z_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.loss_history_, mx.loss_history_, rtol=1e-10)
-
-    def test_cols_v_update_takes_fused_branch(self, rng, monkeypatch):
-        calls = self._spy(monkeypatch)
-        X, Y = make_problem(rng, n=24, m=61, non_negative=False)
-        X = (X > np.median(X)).astype(float)
-        mf, mx = self._pallas_pair(X, Y, rng, "cols")
-        assert any(k.get("yterm") is not None for k in calls), \
-            "cols-sharded fused V update (with folded Y term) never traced"
-        assert np.allclose(mf.V_, mx.V_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.loss_history_, mx.loss_history_, rtol=1e-10)
-
-    def test_grid_distributed_fused_with_elastic_net(self, rng,
-                                                     monkeypatch):
-        """On the 2-D grid every sigmoid factor update (U over COL, Z over
-        COL, V over ROW + local Y term) takes the psummed fused path."""
-        calls = self._spy(monkeypatch)
-        X, Y = make_problem(rng, n=21, m=61, non_negative=False,
-                            binary_y=True)
-        X = (X > np.median(X)).astype(float)
-        k = 4
-        U0 = np.abs(rng.randn(X.shape[0], k))
-        V0 = np.abs(rng.randn(X.shape[1], k))
-        Z0 = np.abs(rng.randn(Y.shape[1], k))
-        out = []
-        for up in (True, False):
-            m = CMF(n_components=k, solver="newton", max_iter=5, tol=0.0,
-                    dtype="float64", x_link="sigmoid", y_link="sigmoid",
-                    alpha=0.1, l1_ratio=0.4, n_shards=(2, 4),
-                    shard_layout="grid", use_pallas=up,
-                    U_non_negative=False, V_non_negative=False,
-                    Z_non_negative=False)
-            m.fit(X, Y, U=U0, V=V0, Z=Z0)
-            out.append(m)
-        mf, mx = out
-        axes = [k.get("axis_name") for k in calls]
-        assert sum(a is not None for a in axes) >= 3, \
-            f"expected U/Z/V psummed fused updates, traced axes={axes}"
-        assert np.allclose(mf.U_, mx.U_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.V_, mx.V_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.Z_, mx.Z_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.loss_history_, mx.loss_history_, rtol=1e-10)
-
-    def test_cols_distributed_fused_with_elastic_net(self, rng,
-                                                     monkeypatch):
-        """U's and Z's updates in the cols layout psum fused kernel
-        partials; nonzero l1/l2 exercises the penalties-once-post-psum
-        contract (kernels run with l1=l2=0)."""
-        calls = self._spy(monkeypatch)
-        X, Y = make_problem(rng, n=24, m=61, non_negative=False,
-                            binary_y=True)
-        X = (X > np.median(X)).astype(float)
-        k = 4
-        U0 = np.abs(rng.randn(X.shape[0], k))
-        V0 = np.abs(rng.randn(X.shape[1], k))
-        Z0 = np.abs(rng.randn(Y.shape[1], k))
-        out = []
-        for up in (True, False):
-            m = CMF(n_components=k, solver="newton", max_iter=5, tol=0.0,
-                    dtype="float64", x_link="sigmoid", y_link="sigmoid",
-                    alpha=0.1, l1_ratio=0.4, n_shards=8,
-                    shard_layout="cols", use_pallas=up,
-                    U_non_negative=False, V_non_negative=False,
-                    Z_non_negative=False)
-            m.fit(X, Y, U=U0, V=V0, Z=Z0)
-            out.append(m)
-        mf, mx = out
-        axes = [k.get("axis_name") for k in calls]
-        assert any(a is not None for a in axes), \
-            "distributed fused sigmoid branch (psummed partials) not traced"
-        assert any(a is None for a in axes), \
-            "local fused V update not traced"
-        assert np.allclose(mf.U_, mx.U_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.V_, mx.V_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.Z_, mx.Z_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(mf.loss_history_, mx.loss_history_, rtol=1e-10)
-
-
 class TestColsLayout:
     def test_mu_dense_matches_single_device(self, rng):
         X, Y = make_problem(rng, n=40, m=67)  # m not divisible by 8
@@ -513,43 +331,26 @@ class TestShardedDeviceLoop:
         assert np.allclose(m1.Z_, m2.Z_, rtol=1e-12)
 
 
-class TestDeviceLoopFusedSigmoid:
-    def test_newton_sigmoid_x_device_matches_host(self, rng):
-        """x-sigmoid in the device-resident loop: fused kernel partials
-        psummed INSIDE lax.while_loop inside shard_map (the riskiest
-        composition for the distributed fused path)."""
-        X, Y = make_problem(rng, n=67, m=40, non_negative=False,
-                            binary_y=True)
-        X = (X > np.median(X)).astype(float)
-        U0 = rng.randn(X.shape[0], 4)
-        V0 = rng.randn(X.shape[1], 4)
-        Z0 = rng.randn(Y.shape[1], 4)
-        kw = dict(n_components=4, solver="newton", x_link="sigmoid",
-                  y_link="sigmoid", alpha=0.05, l1_ratio=0.3,
-                  U_non_negative=False, V_non_negative=False,
-                  Z_non_negative=False, n_shards=8, random_state=0,
-                  max_iter=8, tol=1e-7, dtype="float64", use_pallas=True)
-        m1 = CMF(loop="host", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(loop="device", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert m1.n_iter_ == m2.n_iter_
-        assert np.allclose(m1.loss_history_, m2.loss_history_, rtol=1e-12)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-12)
-        assert np.allclose(m1.V_, m2.V_, rtol=1e-12)
-        assert np.allclose(m1.Z_, m2.Z_, rtol=1e-12)
-
-
 class TestShardingInfra:
     def test_factors_actually_sharded(self, rng):
         """U must live row-sharded across the mesh during the fit — verify
         via the sharding of the block output, not just final values."""
         from pycmf_tpu.parallel.mesh import make_mesh
-        from pycmf_tpu.parallel.sharded import _prepare_rows
+        from pycmf_tpu.parallel.sharded import (_prepare_rows,
+                                                _shard_specs_rows,
+                                                place_operands)
 
         X, Y = make_problem(rng, n=64, m=40)
         U0 = np.abs(rng.randn(64, 4))
         ops, U_pad, n = _prepare_rows(X, Y, U0, 8, jnp.float64)
         assert U_pad.shape == (64, 4) and n == 64
         assert ops.mask.sum() == 64
+        # placed operands: one 8-row block of X per device, Y everywhere
+        ops = place_operands(ops, _shard_specs_rows(ops), make_mesh(8))
+        shards = ops.X.addressable_shards
+        assert len({s.device for s in shards}) == 8
+        assert all(s.data.shape == (8, 40) for s in shards)
+        assert len(ops.Y.sharding.device_set) == 8
 
     def test_bad_layout_raises(self, rng):
         X, Y = make_problem(rng)
@@ -563,135 +364,9 @@ class TestShardingInfra:
             CMF(n_components=4, n_shards=999, max_iter=2).fit(X, Y)
 
 
-class TestShardedBell:
-    """Per-shard BlockEll layouts (the MXU path for shards too big to
-    densify): stacked on a leading device dim, padded to a common block
-    count with zero blocks, dispatched inside shard_map."""
-
-    def test_prepare_rows_builds_stacked_bell(self, rng):
-        from pycmf_tpu.parallel.sharded import _prepare_rows
-
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        U0 = np.abs(rng.randn(67, 4))
-        ops, _, _ = _prepare_rows(X, Y, U0, 8, jnp.float64,
-                                  use_pallas=True)
-        assert ops.X_bell is not None and ops.Xt_bell is not None
-        d = ops.X_bell.blocks.shape[0]
-        assert d == 8
-        # brows stay sorted per shard (zero-padding appends at the last
-        # row-block), so the kernel's row-change logic is intact
-        br = np.asarray(ops.X_bell.brows)
-        assert all(np.all(np.diff(br[i]) >= 0) for i in range(d))
-
-    def test_mu_bell_matches_segment_sum(self, rng):
-        """m=300 spans 3 column blocks and shard nnz counts differ, so the
-        stacked layout's NB padding is exercised; the bell sharded fit must
-        match the segment-sum sharded fit."""
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(300, 4))
-        Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="mu", max_iter=15, tol=0.0,
-                  dtype="float64", n_shards=8, sparse_mode="csr")
-        m1 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(m1.loss_history_, m2.loss_history_, rtol=1e-10)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-9)
-        assert np.allclose(m1.V_, m2.V_, rtol=1e-9)
-
-    def test_newton_bell_matches_segment_sum(self, rng):
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(300, 4))
-        Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="newton", max_iter=5, tol=0.0,
-                  dtype="float64", n_shards=8, sparse_mode="csr")
-        m1 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-8, atol=1e-10)
-        assert np.allclose(m1.V_, m2.V_, rtol=1e-8, atol=1e-10)
-
-    def test_bell_device_loop_matches_host(self, rng):
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(300, 4))
-        Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="mu", max_iter=20, tol=1e-5,
-                  dtype="float64", n_shards=8, sparse_mode="csr",
-                  use_pallas=True)
-        m1 = CMF(loop="host", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(loop="device", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert m1.n_iter_ == m2.n_iter_
-        assert np.allclose(m1.loss_history_, m2.loss_history_, rtol=1e-12)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-12)
-        assert np.allclose(m1.V_, m2.V_, rtol=1e-12)
-
-    def test_prepare_cols_builds_stacked_bell(self, rng):
-        from pycmf_tpu.parallel.sharded import _prepare_cols
-
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        V0 = np.abs(rng.randn(300, 4))
-        ops, _, _ = _prepare_cols(X, Y, V0, 8, jnp.float64,
-                                  use_pallas=True)
-        assert ops.X_bell is not None and ops.Xt_bell is not None
-        assert ops.X_bell.blocks.shape[0] == 8
-        assert ops.row_sq.shape == (8, 67)     # partial per-shard ‖xᵢ‖²
-        # partial row norms sum to the exact global row norms
-        Xd = np.asarray(X.todense())
-        assert np.allclose(np.asarray(ops.row_sq).sum(axis=0),
-                           (Xd ** 2).sum(axis=1))
-        # local Xᵀ row norms are exact (full rows of Xᵀ), concatenated
-        rst = np.asarray(ops.row_sq_t).ravel()[:300]
-        assert np.allclose(rst, (Xd ** 2).sum(axis=0))
-
-    def test_mu_bell_cols_matches_segment_sum(self, rng):
-        """Cols layout: the shared dim m=300 is sharded (m_loc=38 per
-        shard); the per-shard BlockEll MU fit must match segment-sum."""
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(300, 4))
-        Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="mu", max_iter=15, tol=0.0,
-                  dtype="float64", n_shards=8, sparse_mode="csr",
-                  shard_layout="cols")
-        m1 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(m1.loss_history_, m2.loss_history_, rtol=1e-10)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-9)
-        assert np.allclose(m1.V_, m2.V_, rtol=1e-9)
-
-    def test_newton_bell_cols_matches_segment_sum(self, rng):
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(300, 4))
-        Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="newton", max_iter=5, tol=0.0,
-                  dtype="float64", n_shards=8, sparse_mode="csr",
-                  shard_layout="cols")
-        m1 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-8, atol=1e-10)
-        assert np.allclose(m1.V_, m2.V_, rtol=1e-8, atol=1e-10)
-
-    def test_bell_cols_device_loop_matches_host(self, rng):
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(300, 4))
-        Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="mu", max_iter=20, tol=1e-5,
-                  dtype="float64", n_shards=8, sparse_mode="csr",
-                  shard_layout="cols", use_pallas=True)
-        m1 = CMF(loop="host", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(loop="device", **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert m1.n_iter_ == m2.n_iter_
-        assert np.allclose(m1.loss_history_, m2.loss_history_, rtol=1e-12)
-        assert np.allclose(m1.U_, m2.U_, rtol=1e-12)
-        assert np.allclose(m1.V_, m2.V_, rtol=1e-12)
-
-
 class TestShardedDataDtype:
     """data_dtype='bfloat16' for sharded fits: shards store X/Y in bf16
-    (halving per-chip HBM data-pass traffic) while factors/masks/norms
+    (halving per-device data-pass traffic) while factors/masks/norms
     stay at the factor dtype — same policy as the single-chip path."""
 
     def _pair(self, rng, layout, solver="mu", max_iter=20):
@@ -742,20 +417,6 @@ class TestShardedDataDtype:
         # observed gap is ±2% either side of the f64 reference
         assert true_loss(m2) == pytest.approx(true_loss(mref), rel=0.05)
 
-    def test_csr_bell_bf16_data_matches_segment_sum(self, rng):
-        """bf16 CSR shards through the BlockEll kernels (mixed-dtype dot:
-        bf16 blocks x f64 factor operand) vs the segment-sum path."""
-        X, Y = make_problem(rng, n=67, m=300, sparse=True)
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(300, 4))
-        Z0 = np.abs(rng.randn(Y.shape[1], 4))
-        kw = dict(n_components=4, solver="mu", max_iter=10, tol=0.0,
-                  dtype="float64", n_shards=8, sparse_mode="csr",
-                  data_dtype="bfloat16")
-        m1 = CMF(use_pallas=True, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        m2 = CMF(use_pallas=False, **kw).fit(X, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(m1.U_, m2.U_, rtol=5e-2, atol=1e-3)
-        assert np.allclose(m1.V_, m2.V_, rtol=5e-2, atol=1e-3)
 
 
 class TestShardedAutoDensify:
@@ -1254,184 +915,3 @@ class TestGridLayout:
         ms = CMF(**kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
         assert np.allclose(ms.U_, md.U_, rtol=1e-9, atol=1e-11)
         assert np.allclose(ms.loss_history_, md.loss_history_, rtol=1e-9)
-
-
-class TestGridBell:
-    """Per-cell BlockEll MXU layouts on the 2-D grid (parallel/grid.py
-    _stack_bell_grid): each cell's block layout stacked with (r, c)
-    leading dims, padded to the global block count with zero blocks,
-    dispatched inside the double-psum shard_map iterations."""
-
-    def _sparse_problem(self, rng):
-        import scipy.sparse as sp
-
-        X = np.abs(rng.randn(67, 53))
-        Xs = sp.csr_matrix(X * (X > 0.8))
-        Y = np.abs(rng.randn(53, 9))
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(53, 4))
-        Z0 = np.abs(rng.randn(9, 4))
-        return Xs, Y, U0, V0, Z0
-
-    def test_prepare_grid_builds_stacked_bell(self, rng):
-        from pycmf_tpu.parallel.grid import _prepare_grid
-
-        Xs, Y, U0, V0, _ = self._sparse_problem(rng)
-        ops, _, _, _, _ = _prepare_grid(Xs, Y, U0, V0, 2, 4,
-                                        jnp.float64, use_pallas=True)
-        assert ops.X_bell is not None and ops.Xt_bell is not None
-        assert ops.X_bell.blocks.shape[:2] == (2, 4)
-        # local transposes keep the same (r, c) cell-index order
-        assert ops.Xt_bell.blocks.shape[:2] == (2, 4)
-        # brows stay sorted per cell (zero-padding appends at the last
-        # row-block) so the kernel's row-change logic is intact
-        br = np.asarray(ops.X_bell.brows)
-        assert all(np.all(np.diff(br[i, j]) >= 0)
-                   for i in range(2) for j in range(4))
-
-    def test_mu_bell_grid_matches_segment_sum_and_single(self, rng):
-        Xs, Y, U0, V0, Z0 = self._sparse_problem(rng)
-        kw = dict(n_components=4, solver="mu", max_iter=15, tol=0.0,
-                  dtype="float64", random_state=0, n_shards=(2, 4),
-                  shard_layout="grid", sparse_mode="csr")
-        g1 = CMF(use_pallas=True, **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        g0 = CMF(use_pallas=False, **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        s = CMF(n_components=4, solver="mu", max_iter=15, tol=0.0,
-                dtype="float64", random_state=0).fit(
-                    Xs, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(g1.U_, g0.U_, rtol=1e-10, atol=1e-12)
-        assert np.allclose(g1.V_, g0.V_, rtol=1e-10, atol=1e-12)
-        assert np.allclose(g1.U_, s.U_, rtol=1e-10, atol=1e-12)
-        assert np.allclose(g1.loss_history_, s.loss_history_, rtol=1e-10)
-
-    def test_newton_bell_grid_matches_segment_sum(self, rng):
-        Xs, Y, U0, V0, Z0 = self._sparse_problem(rng)
-        kw = dict(n_components=4, solver="newton", max_iter=5, tol=0.0,
-                  dtype="float64", random_state=0, n_shards=(2, 4),
-                  shard_layout="grid", sparse_mode="csr")
-        g1 = CMF(use_pallas=True, **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        g0 = CMF(use_pallas=False, **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(g1.U_, g0.U_, rtol=1e-8, atol=1e-10)
-        assert np.allclose(g1.V_, g0.V_, rtol=1e-8, atol=1e-10)
-
-    def test_newton_sigmoid_bell_grid_matches(self, rng):
-        """Sigmoid X-link on bell cells: the padding masks must coexist
-        with the MXU block layout (zero blocks are σ-masked, not dropped
-        like the linear case)."""
-        import scipy.sparse as sp
-
-        Xs = sp.csr_matrix((rng.rand(67, 53) < 0.15).astype(float))
-        Y = np.abs(rng.randn(53, 9))
-        U0 = np.abs(rng.randn(67, 4))
-        V0 = np.abs(rng.randn(53, 4))
-        Z0 = np.abs(rng.randn(9, 4))
-        kw = dict(n_components=4, solver="newton", x_link="sigmoid",
-                  max_iter=4, tol=0.0, dtype="float64", random_state=0,
-                  n_shards=(2, 4), shard_layout="grid",
-                  sparse_mode="csr")
-        g1 = CMF(use_pallas=True, **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        g0 = CMF(use_pallas=False, **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(g1.U_, g0.U_, rtol=1e-8, atol=1e-10)
-        assert np.allclose(g1.V_, g0.V_, rtol=1e-8, atol=1e-10)
-
-    def test_bell_grid_device_loop_matches_host(self, rng):
-        Xs, Y, U0, V0, Z0 = self._sparse_problem(rng)
-        kw = dict(n_components=4, solver="mu", max_iter=10, tol=0.0,
-                  dtype="float64", random_state=0, n_shards=(2, 4),
-                  shard_layout="grid", sparse_mode="csr",
-                  use_pallas=True)
-        mh = CMF(loop="host", **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        md = CMF(loop="device", **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(mh.U_, md.U_, rtol=1e-12)
-        assert np.allclose(mh.loss_history_, md.loss_history_, rtol=1e-12)
-
-    def test_grid_auto_picks_bell_for_block_structured(self, rng,
-                                                       monkeypatch):
-        """'auto' with over-threshold cells whose sparsity is BLOCK
-        structured rides the MXU bell layout (not chunked/segment-sum):
-        512x1024 X with nonzeros only in (bi+bj)%2==0 128-blocks, so each
-        256x256 cell stores 2 of its 4 blocks — bell bytes fit a
-        threshold the dense cell exceeds."""
-        import scipy.sparse as sp
-
-        import pycmf_tpu.ops.chunked as ck
-        import pycmf_tpu.parallel.grid as gridmod
-        import pycmf_tpu.utils.validation as val
-
-        rows, cols, data = [], [], []
-        for bi in range(4):
-            for bj in range(8):
-                if (bi + bj) % 2 == 0:
-                    rows.append(bi * 128 + rng.randint(0, 128, 400))
-                    cols.append(bj * 128 + rng.randint(0, 128, 400))
-                    data.append(np.abs(rng.randn(400)) + 0.1)
-        Xb = sp.coo_matrix(
-            (np.concatenate(data),
-             (np.concatenate(rows), np.concatenate(cols))),
-            shape=(512, 1024)).tocsr()
-        Y = np.abs(rng.randn(1024, 5))
-        bell_calls, chunk_calls = [], []
-        real_bell = gridmod._stack_bell_grid
-        monkeypatch.setattr(
-            gridmod, "_stack_bell_grid",
-            lambda *a, **k: (bell_calls.append(1), real_bell(*a, **k))[1])
-        monkeypatch.setattr(
-            ck, "stack_chunked_grid",
-            lambda *a, **k: chunk_calls.append(1))
-        # dense cell = 256*256*8 B = 512 KiB > threshold; each cell's
-        # bell = 2 blocks * 128*128*8 B = 256 KiB <= threshold
-        monkeypatch.setattr(val, "DENSIFY_THRESHOLD", 300_000)
-        kw = dict(n_components=4, solver="mu", max_iter=3, tol=0.0,
-                  dtype="float64", random_state=0)
-        g = CMF(n_shards=(2, 4), shard_layout="grid", use_pallas=True,
-                **kw).fit(Xb, Y)
-        assert bell_calls and not chunk_calls
-        s = CMF(sparse_mode="dense", **kw).fit(Xb, Y)
-        assert np.allclose(g.U_, s.U_, rtol=1e-9, atol=1e-11)
-        assert np.allclose(g.V_, s.V_, rtol=1e-9, atol=1e-11)
-
-    def test_bf16_bell_grid_matches_single_device(self, rng):
-        """bf16 data cells + per-cell BlockEll: the bell blocks store at
-        the data dtype, so quantization (not reduction order) dominates —
-        the parity partner is the single-device fit with the SAME bf16
-        storage."""
-        Xs, Y, U0, V0, Z0 = self._sparse_problem(rng)
-        kw = dict(n_components=4, solver="mu", max_iter=10, tol=0.0,
-                  random_state=0, dtype="float32",
-                  data_dtype="bfloat16")
-        g = CMF(n_shards=(2, 4), shard_layout="grid", sparse_mode="csr",
-                use_pallas=True, **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        s = CMF(**kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(g.U_, s.U_, rtol=2e-2, atol=1e-4)
-        assert np.isclose(g.reconstruction_err_, s.reconstruction_err_,
-                          rtol=1e-2)
-
-    def test_grid_auto_bell_refusal_falls_to_chunked(self, rng,
-                                                     monkeypatch):
-        """Over-threshold SCATTERED cells with use_pallas: the bell build
-        is attempted, refuses (block bytes exceed the threshold), and
-        'auto' falls through to the streamed chunked layout."""
-        import pycmf_tpu.ops.chunked as ck
-        import pycmf_tpu.parallel.grid as gridmod
-        import pycmf_tpu.utils.validation as val
-
-        Xs, Y, U0, V0, Z0 = self._sparse_problem(rng)
-        bell_calls, chunk_calls = [], []
-        real_bell = gridmod._stack_bell_grid
-        real_chunk = ck.stack_chunked_grid
-        monkeypatch.setattr(
-            gridmod, "_stack_bell_grid",
-            lambda *a, **k: (bell_calls.append(1), real_bell(*a, **k))[1])
-        monkeypatch.setattr(
-            ck, "stack_chunked_grid",
-            lambda *a, **k: (chunk_calls.append(1),
-                             real_chunk(*a, **k))[1])
-        monkeypatch.setattr(val, "DENSIFY_THRESHOLD", 64)
-        kw = dict(n_components=4, solver="mu", max_iter=3, tol=0.0,
-                  dtype="float64", random_state=0)
-        g = CMF(n_shards=(2, 4), shard_layout="grid", use_pallas=True,
-                **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        assert bell_calls, "bell layout was never attempted"
-        assert chunk_calls, "refusal did not fall through to chunked"
-        s = CMF(sparse_mode="dense", **kw).fit(Xs, Y, U=U0, V=V0, Z=Z0)
-        assert np.allclose(g.U_, s.U_, rtol=1e-9, atol=1e-11)
